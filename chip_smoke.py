@@ -1,6 +1,8 @@
 """GPU smoke run of qgd_tpu_torch: builds the CUDA stage kernels from the
 sources in this checkout, checks each against its plain PyTorch version on
-the card, then drives the main path once and checks what comes out.
+the card and times it beside its bound, its library yardstick and with L2
+flushed, then drives the main path once, checks what comes out, and
+profiles one shorter call of it.
 
 The main path: the CNOT3 objective + exact discrete-adjoint gradient
 (3 coupled transmons (4,4,4), real-stacked state 2N = 128, 8 gate-basis
@@ -28,6 +30,7 @@ import torch
 
 NSTEPS = 1000
 SCENARIOS = 256
+TRACE_STEPS = 100  # the profiled call
 ORDER = 4
 # f32 kernel vs f32 plain version of one kernel call: same arithmetic in
 # another summation order.
@@ -38,6 +41,13 @@ ROUTE_OBJ_TOL, ROUTE_GRAD_TOL = 1e-5, 1e-4
 F64_OBJ_TOL, F64_GRAD_TOL = 1e-4, 1e-3
 # A broken stage solve sits at 1e-2 or worse.
 RESIDUAL_LIMIT = 1e-6
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): FP32
+# outside the tensor cores, and HBM3. The kernels run in plain FP32 FMA.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES_PER_S = 3.35e12
+# A buffer larger than the 50 MB L2, written between launches to time a
+# kernel with its operands cold.
+FLUSH_BYTES = 128 * 2 ** 20
 # The 1e-7 stage-residual guard of the TPU runs, reported beside ours.
 TPU_ERA_GUARD = 1e-7
 
@@ -125,6 +135,58 @@ def _device_ms(fn, calls=20, reps=10):
     return float(np.median(_events_ms(graph.replay, reps))) / calls
 
 
+def _cold_ms(fn, flush):
+    """Device time of one ``fn()`` call with L2 flushed before it: the
+    graph of (flush, fn) pairs less the graph of flushes alone."""
+    def pair():
+        flush()
+        fn()
+    return _device_ms(pair) - _device_ms(flush)
+
+
+def _host_us(fn, calls=200):
+    """Host time of one eager ``fn()`` call (microseconds): ``calls`` calls
+    enqueued back to back, one synchronize at the end, averaged. The
+    device work per call is shorter than the host's, so this is the time
+    the call costs the host-bound step loop."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _device_kernels(fn):
+    """Names of the device activities (kernels, copies, sets) that one
+    ``fn()`` call issues, from torch.profiler; ``None`` if the profiler
+    records no device activity here."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
+
+
+def _bound(flops, nbytes):
+    """``(bound_ms, bound_by, resource)``: the least time the card could
+    take, the larger of the FLOP over the FP32 peak and the bytes over the
+    HBM rate."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", "fp32_fma"
+    return t_bytes, "bytes", "hbm_bytes"
+
+
 def _main_path_stacks(prob, controls, pcof, dev):
     """Generator stacks (S, m, 2N, 2N) and states (S, 2N, 8) as the main
     path hands them to the kernels (f32, step 500's left end)."""
@@ -147,11 +209,12 @@ def _main_path_stacks(prob, controls, pcof, dev):
 
 
 def kernel_phase(prob, controls, pcof, dev):
+    import qgd_tpu_torch as qt
     from qgd_tpu_torch.ops import stage_kernels as sk
 
     # small shapes, every m the kernels are tested at, ragged tiles included
     for m in (1, 2, 3, 6):
-        for B, n, b in ((3, 16, 4), (2, 130, 11)):
+        for B, n, b in ((3, 16, 4), (2, 130, 11), (2, 256, 8)):
             rng = np.random.default_rng(m * 100 + n)
             A = torch.tensor(rng.standard_normal((B, m, n, n)) * 0.3,
                              dtype=torch.float32, device=dev)
@@ -164,7 +227,8 @@ def kernel_phase(prob, controls, pcof, dev):
             check(e_l <= KERNEL_REL_TOL and e_r <= KERNEL_REL_TOL,
                   f"kernel vs plain at m={m} B={B} n={n} b={b}: "
                   f"lhs {e_l:.2e} rhs {e_r:.2e}")
-    phase("kernels", "m in (1, 2, 3, 6) at (B,n,b) = (3,16,4), (2,130,11): "
+    phase("kernels", "m in (1, 2, 3, 6) at (B,n,b) = (3,16,4), (2,130,11), "
+                     "(2,256,8): "
                      f"kernel vs plain <= {KERNEL_REL_TOL:g} relative")
 
     # backward of each autograd.Function on the card vs the plain VJP
@@ -194,38 +258,95 @@ def kernel_phase(prob, controls, pcof, dev):
     # the main path's shapes: B=256 scenarios, 2N=128, m=2, b=8
     A, W, dt = _main_path_stacks(prob, controls, pcof, dev)
     m = ORDER // 2
+    B, _, n, _ = A.shape
+    b = W.shape[-1]
+    f32 = 4
+    # what each function must do: the LHS one n^3 product per matrix at
+    # m = 2, the RHS m(m+1)/2 products of n^2 b; each input read once, each
+    # output written once
+    work = {"hermite_lhs_matrix": (2 * n ** 3 * B * (m - 1),
+                                   (A.numel() + B * n * n) * f32),
+            "hermite_rhs": (m * (m + 1) // 2 * 2 * n * n * b * B,
+                            (A.numel() + 2 * W.numel()) * f32)}
+    # the library yardstick of the LHS at m = 2: one cuBLAS batched FP32
+    # product, C + (c2/2) At0 At0 with C = c0 I + c1 At0 + (c2/2) At1 on
+    # the scaled stack, prepared outside the timed graph
+    c = qt.hermite_coefficients(m)
+    scales = sk._stack_scales(dt, m, -1.0, dev)
+    a0s, a1s = A[:, 0] * scales[0], A[:, 1] * scales[1]
+    C = (c[0] * torch.eye(n, device=dev) + c[1] * a0s + (c[2] / 2) * a1s)
+    library = lambda: torch.baddbmm(C, a0s, a0s, alpha=c[2] / 2)
+    flush_buf = torch.empty(FLUSH_BYTES // f32, dtype=torch.float32,
+                            device=dev)
+    flush = flush_buf.zero_
     rows = []
-    for name, src, replaces, kern, plain in (
-            ("hermite_lhs_matrix", "qgd_tpu_torch/csrc/hermite_stage.cu",
+    for name, src, replaces, kern, plain, lib in (
+            ("hermite_lhs_matrix", "qgd_tpu_torch/csrc/lhs.cu",
              "qgd_tpu/ops/pallas_step.py:184",
              lambda: sk.hermite_lhs_matrix_kernel_call(A, dt, m),
-             lambda: sk.lhs_matrix_plain(A, dt, m)),
-            ("hermite_rhs", "qgd_tpu_torch/csrc/hermite_stage.cu",
+             lambda: sk.lhs_matrix_plain(A, dt, m), library),
+            ("hermite_rhs", "qgd_tpu_torch/csrc/rhs.cu",
              "qgd_tpu/ops/pallas_step.py:91",
              lambda: sk.hermite_rhs_kernel_call(A, W, dt, m),
-             lambda: sk.rhs_plain(A, W, dt, m))):
+             lambda: sk.rhs_plain(A, W, dt, m), None)):
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         rel = err / float(ref.abs().max())
         check(rel <= KERNEL_REL_TOL,
               f"{name} at the main-path shape: {rel:.2e} relative")
-        # plain, kernel, kernel, plain
+        lib_note = ""
+        if lib is not None:
+            lib_rel = _rel(lib(), ref)
+            check(lib_rel <= KERNEL_REL_TOL,
+                  f"{name} library yardstick vs plain: {lib_rel:.2e}")
+        # plain, kernel, kernel, plain (library last, beside them)
         dev_ms = [_device_ms(f) for f in (plain, kern, kern, plain)]
         ms = float(np.mean(dev_ms[1:3]))
         plain_ms = float(np.mean([dev_ms[0], dev_ms[3]]))
+        library_ms = _device_ms(lib) if lib is not None else None
+        cold_ms = _cold_ms(kern, flush)
+        bound_ms, bound_by, resource = _bound(*work[name])
         eager = [_eager_ms(f) for f in (plain, kern)]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": 0,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        phase("kernels", f"{name} at B=256 n=128 m=2 b=8: max|kernel-plain| "
-                         f"{err:.3e} ({rel:.2e} rel); device time per call "
-                         f"(CUDA graph of 20 calls, median of 10 replays, "
-                         f"CUDA events; plain, kernel, kernel, plain "
+        host_us = _host_us(kern)
+        kernels = _device_kernels(kern)
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": 0,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_resource": resource, "share": bound_ms / ms,
+               "library_ms": library_ms, "cold_ms": cold_ms,
+               "device_launches": None if kernels is None else len(kernels),
+               "eager_ms": eager[1], "host_us": host_us}
+        if lib is None:
+            row["library_note"] = ("no single PyTorch call: W2 depends on "
+                                   "W1, two dependent products")
+        else:
+            lib_note = (f"; library (torch.baddbmm on the pre-scaled "
+                        f"stack) {library_ms:.4f} ms, {lib_rel:.1e} rel vs "
+                        f"plain")
+        rows.append(row)
+        flops, nbytes = work[name]
+        warm = (" (share > 1: the operands came from L2)"
+                if bound_ms / ms > 1 else "")
+        phase("kernels", f"{name} at B={B} n={n} m={m} b={b}: max|kernel-"
+                         f"plain| {err:.3e} ({rel:.2e} rel); device time per "
+                         f"call (CUDA graph of 20 calls, median of 10 "
+                         f"replays, CUDA events; plain, kernel, kernel, plain "
                          f"{', '.join(f'{t:.4f}' for t in dev_ms)} ms): "
-                         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                         f"eager call with host launch (median of 20): "
-                         f"kernel {eager[1]:.4f} ms, plain {eager[0]:.4f} ms")
+                         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                         f"{lib_note}; cold L2 (a {FLUSH_BYTES >> 20} MiB "
+                         f"write before each call, subtracted) {cold_ms:.4f} "
+                         f"ms; bound {bound_ms:.4f} ms by {resource} "
+                         f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB "
+                         f"at {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s, "
+                         f"{PEAK_HBM_BYTES_PER_S / 1e12:g} TB/s), share "
+                         f"{bound_ms / ms:.3f}{warm}; eager call with host "
+                         f"launch (median of 20): kernel {eager[1]:.4f} ms, "
+                         f"plain {eager[0]:.4f} ms; host time per call "
+                         f"{host_us:.1f} us; device activities per call "
+                         f"{row['device_launches']}: {kernels}")
+    del flush_buf
     return rows
 
 
@@ -304,6 +425,46 @@ def main_path_phase(prob, controls, pcof, tgt, dev, rows, smi):
     check(res["max"] <= RESIDUAL_LIMIT, "stage residual")
 
 
+def trace_phase(pcof, tgt, dev, smi):
+    """torch.profiler over one main-path call at nsteps = TRACE_STEPS (the
+    same step size, S = SCENARIOS): the device's busy share of the call and
+    where its device time goes."""
+    import qgd_tpu_torch as qt
+    from torch.profiler import ProfilerActivity, profile
+
+    prob = qt.cnot3_problem(tf=550.0 * TRACE_STEPS / NSTEPS,
+                            nsteps=TRACE_STEPS, solver="schulz",
+                            dtype="float32", schulz_iters=48,
+                            schulz_warm_budget=0, device=dev)
+    controls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
+    run = lambda: qt.segmented_objective_and_gradient(prob, controls, pcof,
+                                                      tgt, ORDER)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, ops = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+        elif e.name.startswith("aten::"):
+            ops += 1
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    phase("trace", f"one call, nsteps={TRACE_STEPS} S={SCENARIOS}, "
+                   f"torch.profiler on, {smi}: wall {wall_ms:.1f} ms, device "
+                   f"kernels {busy_ms:.1f} ms (busy {busy_ms / wall_ms:.3f}, "
+                   f"idle {1 - busy_ms / wall_ms:.3f}), {ops} aten events, nested "
+                   f"calls included ({ops / TRACE_STEPS:.0f} per step); top "
+                   f"device time: "
+                   + "; ".join(f"{name[:60]} {t:.2f} ms" for name, t in top))
+
+
 def main():
     smi = device_phase()
     import qgd_tpu_torch as qt
@@ -322,6 +483,7 @@ def main():
 
     rows = kernel_phase(prob, controls, pcof, dev)
     main_path_phase(prob, controls, pcof, tgt, dev, rows, smi)
+    trace_phase(pcof, tgt, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -7,8 +7,9 @@ segmented route at segment length 1 with the Newton-Schulz stage solver
 problem builders and the stage-residual diagnostic. Control vectors are
 batched as a leading tensor dimension. The two Pallas kernels of
 ``qgd_tpu/ops/pallas_step.py`` are hand-written CUDA kernels here
-(``csrc/hermite_stage.cu``, wrapped in ``ops/stage_kernels.py``), built
-with ``nvcc`` at first use on a CUDA tensor.
+(``csrc/lhs.cu``, ``csrc/rhs.cu``, wrapped in ``ops/stage_kernels.py``),
+built with ``nvcc`` at first use on a CUDA tensor. Problems are built on
+the card unless the caller passes ``device="cpu"``.
 
 The package imports torch and numpy, never JAX.
 """

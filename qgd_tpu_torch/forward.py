@@ -51,7 +51,9 @@ def _stage_from_stack(A, m: int, dt, sign: float, use_kernels: bool = True):
         batch = A.shape[:-3]
         flat = A.reshape((-1,) + A.shape[-3:]).contiguous()
         # the kernel computes sum_j (-d)^j c_j D_j for input d: d = -sign*dt
-        out = hermite_lhs_matrix_kernel_call(flat, -sign * dt, m)
+        # (dt itself for the implicit side: no op on the card)
+        d = dt if sign == -1.0 else -sign * dt
+        out = hermite_lhs_matrix_kernel_call(flat, d, m)
         return out.reshape(batch + out.shape[-2:])
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     return build_rhs(scaled_derivatives(A, eye, m), sign * dt, m)

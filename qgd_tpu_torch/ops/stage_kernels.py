@@ -1,36 +1,37 @@
 """The two stage-recursion kernels of the Hermite step: hand-written CUDA
-for Hopper (``csrc/hermite_stage.cu``), each with its plain PyTorch
+for Hopper (``csrc/lhs.cu``, ``csrc/rhs.cu``), each with its plain PyTorch
 version, an ``autograd.Function`` and a launch counter.
 
 * :func:`hermite_lhs_matrix_kernel_call` replaces the Pallas kernel
   ``qgd_tpu/ops/pallas_step.py:184`` (``hermite_lhs_matrix_kernel_call``):
   ``A_stack (B, m, n, n)``, scalar ``dt`` -> ``(B, n, n)`` implicit-stage
   matrices ``sum_j (-dt)^j c_j D_j`` from the recursion on the identity.
-  On the card it is FP32-FMA-bound (256 x 2*128^3 FLOP per call at the
-  main-path shape B=256, n=128, m=2 against ~48 MB moved); the kernel
-  computes 64x64 output tiles from shared-memory-staged operands with 4x4
-  register micro-tiles per thread and never multiplies by the identity.
+  At the main-path shape (B=256, n=128, m=2) it is one 128^3 FP32 product
+  per matrix, bounded about equally by the FP32 FMA rate and by the bytes
+  it must move; one launch per call stages each matrix whole in shared
+  memory and writes the result once.
 * :func:`hermite_rhs_kernel_call` replaces the Pallas kernel
   ``qgd_tpu/ops/pallas_step.py:91`` (``hermite_rhs_kernel_call``):
   ``A_stack (B, m, n, n)``, ``W (B, n, b)``, scalar ``dt`` -> ``(B, n, b)``
-  explicit half ``sum_j dt^j c_j W_j``. Bandwidth-bound (~32 MB of A per
-  call at the main shape, 2*b FLOP per element read); the kernel keeps
-  every state level in shared memory, so only A travels, staged through
-  shared-memory tiles read coalesced with many loads in flight, one
-  output row per thread.
+  explicit half ``sum_j dt^j c_j W_j``. HBM-bound (2*b FLOP per element
+  of the stack); one launch per call requests the whole stack at once,
+  stages ``A_0`` in shared memory, streams the rest from L2 and keeps the
+  state levels in shared memory.
 
-Both wrappers compute the step scales ``(sign*dt)^(k+1)`` with the f32
-arithmetic of ``qgd_tpu.ops.pallas_step._scaled_stack``; the kernels
-multiply each stack element by its scale as they read it (the same single
-f32 rounding as a scaled copy, which is never written), so they need only
-the constant Hermite weights besides.
+The kernels compute the step scales ``(sign*dt)^(k+1)`` themselves (f32,
+as ``qgd_tpu.ops.pallas_step._scaled_stack``) and multiply each stack
+element by its scale once as it arrives: the same single f32 rounding as
+a scaled copy, which is never written. ``dt`` on the card is read there in
+place; a number goes by value. So a wrapper call launches the kernels and
+nothing else (at m=2 one device kernel each).
 
 Dispatch: a tensor on the CPU takes the plain version (that is the CPU
 path and what the tests compare against the JAX package); a CUDA tensor
 launches the kernel through the ``autograd.Function`` or raises (f32
-only, contiguous, all operands on one device). There is no fallback.
-The backward of each Function is the VJP of the plain version, as
-``_lhs_kernel_call_bwd``/``_rhs_kernel_call_bwd`` are in JAX.
+only, contiguous, all operands on one device, a shape the kernels take).
+There is no fallback. The backward of each Function is the VJP of the
+plain version, as ``_lhs_kernel_call_bwd``/``_rhs_kernel_call_bwd`` are in
+JAX.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``: one
 per call that launches the kernel, added where it launches and nowhere
@@ -41,20 +42,19 @@ run they should attribute.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
 from .hermite import hermite_coefficients, scaled_derivatives, build_rhs, \
     build_lhs
 
-# Shared memory a block may use on Hopper (bytes).
-_MAX_SHARED_BYTES = 232448
-
 
 def _stack_scales(dt, m: int, sign: float, device) -> torch.Tensor:
     """The ``m`` f32 step scales ``(sign*dt)^(k+1)`` that multiply ``A_k``
-    (k = stack index). ``dt`` on the device keeps this free of
-    host-to-device copies."""
+    (k = stack index): the plain version of what the kernels compute
+    themselves (``step_scale`` in ``csrc/stage_common.cuh``), for the tests
+    and the library yardstick of ``chip_smoke.py``."""
     s = torch.as_tensor(dt, dtype=torch.float32, device=device) * sign
     return s ** torch.arange(1, m + 1, dtype=torch.float32, device=device)
 
@@ -95,17 +95,31 @@ def _check_cuda_f32(name: str, t: torch.Tensor, device: torch.device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_levels(lib, m: int):
-    if not 1 <= m <= lib.hermite_stage_max_levels():
-        raise ValueError(f"m={m} outside the kernel's range "
-                         f"1..{lib.hermite_stage_max_levels()}")
-
-
+@lru_cache(maxsize=None)
 def _coeffs_arg(m: int):
+    """The m+1 Hermite weights as a C float array, built once per m."""
     return (ctypes.c_float * (m + 1))(*hermite_coefficients(m))
 
 
-def _raise_on(err: int, what: str):
+def _dt_args(dt, device: torch.device):
+    """``(tensor or None, value)``: a scalar on the card is read by the
+    kernel in place (as f32); a number or a CPU scalar goes by value."""
+    if not isinstance(dt, torch.Tensor):
+        return None, float(dt)
+    if dt.numel() != 1:
+        raise ValueError(f"dt must be a scalar, got shape {tuple(dt.shape)}")
+    if dt.device.type == "cpu":
+        return None, float(dt)
+    if dt.device != device:
+        raise ValueError(f"dt is on {dt.device}, expected {device}")
+    return dt.to(torch.float32), 0.0
+
+
+def _raise_on(err: int, what: str, shape: str):
+    from .cuda_build import SHAPE_REFUSED
+
+    if err == SHAPE_REFUSED:
+        raise ValueError(f"{what}: no kernel takes {shape}")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
@@ -121,19 +135,19 @@ def _launch_lhs(A_stack: torch.Tensor, dt, m: int) -> torch.Tensor:
                          f"{tuple(A_stack.shape)}")
     _check_cuda_f32("A_stack", A_stack, A_stack.device)
     lib = load_library()
-    _check_levels(lib, m)
     B, _, n, _ = A_stack.shape
     dev = A_stack.device
+    dt_t, dt_value = _dt_args(dt, dev)
     with torch.cuda.device(dev):
-        scales = _stack_scales(dt, m, -1.0, dev)
-        scratch = torch.empty((B, max(m - 2, 0), n, n), dtype=torch.float32,
-                              device=dev)
+        scratch = (torch.empty((B, m - 2, n, n), dtype=torch.float32,
+                               device=dev) if m >= 3 else None)
         out = torch.empty((B, n, n), dtype=torch.float32, device=dev)
         err = lib.hermite_lhs_matrix_f32(
-            A_stack.data_ptr(), scales.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), _coeffs_arg(m),
-            B, m, n, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "hermite_lhs_matrix_f32")
+            A_stack.data_ptr(), None if dt_t is None else dt_t.data_ptr(),
+            dt_value, -1.0, None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), _coeffs_arg(m), B, m, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "hermite_lhs_matrix_f32", f"B={B}, m={m}, n={n}")
     hermite_lhs_matrix_kernel_call.launches += 1
     return out
 
@@ -155,23 +169,16 @@ def _launch_rhs(A_stack: torch.Tensor, W: torch.Tensor, dt,
     _check_cuda_f32("A_stack", A_stack, A_stack.device)
     _check_cuda_f32("W", W, A_stack.device)
     lib = load_library()
-    _check_levels(lib, m)
     b = W.shape[2]
-    # the kernel's shared memory: its ring of four 128 x 33 At tiles, plus
-    # the state levels zero-padded to (32-row, 8-column) multiples
-    smem = 4 * (4 * 128 * 33 + (m + 1) * -(-n // 32) * 32 * -(-b // 8) * 8)
-    if smem > _MAX_SHARED_BYTES:
-        raise ValueError(f"the RHS kernel needs {smem} B of shared memory "
-                         f"(> {_MAX_SHARED_BYTES}); n={n}, b={b}, m={m}")
     dev = A_stack.device
+    dt_t, dt_value = _dt_args(dt, dev)
     with torch.cuda.device(dev):
-        scales = _stack_scales(dt, m, 1.0, dev)
         out = torch.empty((B, n, b), dtype=torch.float32, device=dev)
         err = lib.hermite_rhs_f32(
-            A_stack.data_ptr(), scales.data_ptr(), W.data_ptr(),
-            out.data_ptr(), _coeffs_arg(m),
+            A_stack.data_ptr(), None if dt_t is None else dt_t.data_ptr(),
+            dt_value, 1.0, W.data_ptr(), out.data_ptr(), _coeffs_arg(m),
             B, m, n, b, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "hermite_rhs_f32")
+    _raise_on(err, "hermite_rhs_f32", f"B={B}, m={m}, n={n}, b={b}")
     hermite_rhs_kernel_call.launches += 1
     return out
 

@@ -1,10 +1,11 @@
 """Problem container: the PyTorch counterpart of ``qgd_tpu.problem``.
 
-A frozen dataclass of tensors on one explicit device. Only the fields the
-ported objective + gradient path reads are carried: the split drift and
-control operators, the initial conditions, the guard projector, ``tf``
-and the static solver settings (``solver``, ``schulz_iters``,
-``schulz_warm_budget``, ``dtype``).
+A frozen dataclass of tensors on one device, the card unless the caller
+passes ``device="cpu"``. Only the fields the ported objective + gradient
+path reads are carried: the split drift and control operators, the
+initial conditions, the guard projector, ``tf`` and the static solver
+settings (``solver``, ``schulz_iters``, ``schulz_warm_budget``,
+``dtype``).
 
 State representation is the real-stacked ``w = [u; v]`` of the reference
 (``A = [[S, K], [-K, S]]`` with ``K = Re(H)``, ``S = Im(H)``); see
@@ -140,10 +141,13 @@ def schrodinger_problem(system_sym, system_asym, sym_operators,
                         solver: str = "lu", schulz_iters: int = 56,
                         schulz_warm_budget: int = -1,
                         dtype: str = "float64",
-                        device="cpu") -> SchrodingerProblem:
+                        device="cuda") -> SchrodingerProblem:
     """Build a validated :class:`SchrodingerProblem` from real split
     operators (numpy or nested lists). ``sym_operators``/``asym_operators``
-    may be a list of (N, N) arrays or a stacked (N_ops, N, N) array."""
+    may be a list of (N, N) arrays or a stacked (N_ops, N, N) array.
+
+    The problem lives on the card by default; a CPU run passes
+    ``device="cpu"``. Without a GPU the default raises."""
     system_sym = np.asarray(system_sym, dtype=np.float64)
     system_asym = np.asarray(system_asym, dtype=np.float64)
     N = system_sym.shape[0]
@@ -173,6 +177,10 @@ def schrodinger_problem(system_sym, system_asym, sym_operators,
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
 
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but no CUDA device is available; pass "
+            "device='cpu' to build the problem on the CPU")
     t = lambda a: torch.as_tensor(a, dtype=torch.float64).to(device)
     return SchrodingerProblem(
         system_sym=t(system_sym),
@@ -213,11 +221,12 @@ def problem_from_arrays(arrays: dict, *, nsteps: int, N_ess_levels: int,
                         solver: str = "lu", schulz_iters: int = 56,
                         schulz_warm_budget: int = -1,
                         dtype: str = "float64",
-                        device="cpu") -> SchrodingerProblem:
+                        device="cuda") -> SchrodingerProblem:
     """Carry a problem across from its array fields, given as numpy:
     ``system_sym``, ``system_asym``, ``sym_operators``, ``asym_operators``,
     ``u0``, ``v0``, ``guard_subspace_projector`` and ``tf``, plus the static
-    fields as keywords. Returns the port's problem on ``device``."""
+    fields as keywords. Returns the port's problem on ``device`` (the card
+    by default, as :func:`schrodinger_problem`)."""
     missing = [k for k in _ARRAY_FIELDS + ("tf",) if k not in arrays]
     if missing:
         raise KeyError(f"problem_from_arrays: missing fields {missing}")

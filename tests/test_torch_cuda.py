@@ -40,7 +40,10 @@ def _inputs(seed, B, m, n, b, device, scale=0.3):
     return A, W
 
 
-SHAPES = [(3, 16, 4), (2, 130, 11), (4, 64, 8)]
+# n <= 128 with n % 4 == 0 takes the staged LHS and resident RHS kernels;
+# the ragged n = 130 and n = 256 (above the whole-matrix staging limit)
+# take the level-by-level LHS kernel and the ring RHS kernel.
+SHAPES = [(3, 16, 4), (2, 130, 11), (4, 64, 8), (2, 256, 8)]
 
 
 @pytest.mark.parametrize("m", [1, 2, 3, 6])
@@ -95,8 +98,54 @@ def test_kernel_backward_is_plain_vjp(cuda):
         assert _rel_err(gk, gp) <= 1e-4
 
 
+def test_device_dt_and_number_dt_agree(cuda):
+    """``dt`` on the card is read by the kernels in place; a number goes by
+    value: both give the same f32 scales."""
+    A, W = _inputs(8, 3, 3, 64, 8, cuda)
+    dt = torch.tensor(0.05, dtype=torch.float32, device=cuda)
+    assert torch.equal(qt.ops.hermite_lhs_matrix_kernel_call(A, dt, 3),
+                       qt.ops.hermite_lhs_matrix_kernel_call(A, 0.05, 3))
+    assert torch.equal(qt.ops.hermite_rhs_kernel_call(A, W, dt, 3),
+                       qt.ops.hermite_rhs_kernel_call(A, W, 0.05, 3))
+
+
+def _device_kernels(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_main_path_wrappers_issue_one_device_kernel(cuda):
+    """At m = 2 with ``dt`` on the card, as the main path calls them, each
+    wrapper call issues exactly one device kernel (torch.profiler)."""
+    A, W = _inputs(9, 4, 2, 128, 8, cuda)
+    dt = torch.tensor(0.55, dtype=torch.float32, device=cuda)
+    lhs = _device_kernels(
+        lambda: qt.ops.hermite_lhs_matrix_kernel_call(A, dt, 2))
+    rhs = _device_kernels(lambda: qt.ops.hermite_rhs_kernel_call(A, W, dt, 2))
+    assert len(lhs) == 1 and "lhs_staged_kernel" in lhs[0], lhs
+    assert len(rhs) == 1 and "rhs_stream_kernel" in rhs[0], rhs
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     A, W = _inputs(6, 2, 2, 16, 4, cuda)
+    with pytest.raises(ValueError, match="no kernel takes"):
+        # m = 17 is past the kernels' 16 levels (order 32)
+        qt.ops.hermite_lhs_matrix_kernel_call(
+            torch.zeros((1, 17, 16, 16), device=cuda), 0.1, 17)
+    with pytest.raises(ValueError, match="no kernel takes"):
+        # the ring kernel's state levels alone exceed shared memory
+        big = torch.zeros((1, 6, 2000, 2000), dtype=torch.float32,
+                          device=cuda)
+        qt.ops.hermite_rhs_kernel_call(
+            big, torch.zeros((1, 2000, 8), device=cuda), 0.1, 6)
     with pytest.raises(TypeError):
         qt.ops.hermite_lhs_matrix_kernel_call(A.double(), 0.1, 2)
     with pytest.raises(ValueError):

@@ -25,7 +25,7 @@ def test_hermite_coefficients_equal():
 @pytest.mark.parametrize("m", [1, 2, 3])
 def test_generator_stack_recursion_and_sides_match_jax(m):
     jprob = jm.cnot2_problem(tf=11.0, nsteps=20)
-    tprob = qt.cnot2_problem(tf=11.0, nsteps=20)
+    tprob = qt.cnot2_problem(tf=11.0, nsteps=20, device="cpu")
     rng = np.random.default_rng(m)
     S = 2
     p = rng.standard_normal((S, m, 2)) * 0.2

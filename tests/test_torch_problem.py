@@ -53,9 +53,10 @@ def test_problem_from_jax_arrays_equals_port_builder(builder, kw):
     carried = qt.problem_from_arrays(
         arrays, nsteps=jprob.nsteps, N_ess_levels=jprob.N_ess_levels,
         solver=jprob.solver, schulz_iters=jprob.schulz_iters,
-        schulz_warm_budget=jprob.schulz_warm_budget, dtype=jprob.dtype)
+        schulz_warm_budget=jprob.schulz_warm_budget, dtype=jprob.dtype,
+        device="cpu")
     ours = getattr(tm, builder)(solver="schulz", schulz_iters=48,
-                                schulz_warm_budget=0, **kw)
+                                schulz_warm_budget=0, device="cpu", **kw)
     for f in _FIELDS:
         a, b = getattr(carried, f), getattr(ours, f)
         assert a.dtype == b.dtype == torch.float64
@@ -71,7 +72,8 @@ def test_problem_from_jax_arrays_equals_port_builder(builder, kw):
 
 
 def test_working_problem_casts_propagation_arrays_only():
-    prob = tm.cnot2_problem(tf=11.0, nsteps=20, dtype="float32")
+    prob = tm.cnot2_problem(tf=11.0, nsteps=20, dtype="float32",
+                            device="cpu")
     w = qt.working_problem(prob)
     assert w.work_dtype == torch.float32
     for f in ("system_sym", "system_asym", "sym_operators",
@@ -79,15 +81,35 @@ def test_working_problem_casts_propagation_arrays_only():
         assert getattr(w, f).dtype == torch.float32
     assert w.guard_subspace_projector.dtype == torch.float64
     assert isinstance(w.tf, float)
-    assert qt.working_problem(tm.cnot2_problem()) is not None
+    assert qt.working_problem(tm.cnot2_problem(device="cpu")) is not None
 
 
 def test_problem_validation_raises_like_jax():
     H = np.array([[0.0, 1.0], [2.0, 0.0]])
     with pytest.raises(ValueError, match="not symmetric"):
         qt.schrodinger_problem(H, np.zeros((2, 2)), [], [], np.eye(2),
-                               np.zeros((2, 2)), 1.0, 10, 2)
+                               np.zeros((2, 2)), 1.0, 10, 2, device="cpu")
     with pytest.raises(ValueError):
         qgd_tpu.problem.schrodinger_problem(
             H, np.zeros((2, 2)), [], [], np.eye(2), np.zeros((2, 2)), 1.0,
             10, 2)
+
+
+@pytest.mark.parametrize("build", [
+    lambda **kw: tm.cnot2_problem(tf=11.0, nsteps=4, **kw),
+    lambda **kw: qt.schrodinger_problem(np.eye(2), np.zeros((2, 2)), [], [],
+                                        np.eye(2), np.zeros((2, 2)), 1.0, 4,
+                                        2, **kw),
+    lambda **kw: qt.problem_from_arrays(
+        {f: np.asarray(getattr(jm.cnot2_problem(tf=11.0, nsteps=4), f))
+         for f in _FIELDS + ("tf",)}, nsteps=4, N_ess_levels=4, **kw),
+], ids=["cnot2_problem", "schrodinger_problem", "problem_from_arrays"])
+def test_builders_default_to_the_card(build):
+    """The default device is CUDA: without a GPU the default raises, and
+    ``device="cpu"`` builds on the CPU."""
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert build(device="cpu").device == torch.device("cpu")

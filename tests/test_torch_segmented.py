@@ -42,7 +42,8 @@ def _problems(dtype, **over):
     kw = dict(SETTINGS, **over)
     jprob = dataclasses.replace(
         qgd_tpu.models.cnot3_problem(tf=TF, nsteps=NSTEPS), dtype=dtype, **kw)
-    tprob = qt.cnot3_problem(tf=TF, nsteps=NSTEPS, dtype=dtype, **kw)
+    tprob = qt.cnot3_problem(tf=TF, nsteps=NSTEPS, dtype=dtype, device="cpu",
+                             **kw)
     jc = tuple(qgd_tpu.BSpline2Control(10, TF) for _ in range(3))
     tc = tuple(qt.BSpline2Control(10, TF) for _ in range(3))
     return jprob, jc, tprob, tc
@@ -120,7 +121,7 @@ def test_gradient_matches_central_differences_f64(warm, lo, hi):
     2.0e-7 along these directions, in JAX as in the port), and the port
     keeps that route as it is, so its worst direction lies between 1e-7
     and 1e-4."""
-    prob = qt.cnot2_problem(tf=11.0, nsteps=20, solver="schulz",
+    prob = qt.cnot2_problem(tf=11.0, nsteps=20, solver="schulz", device="cpu",
                             schulz_iters=48, schulz_warm_budget=warm)
     ctrls = tuple(qt.BSpline2Control(5, prob.tf) for _ in range(2))
     rng = np.random.default_rng(4)

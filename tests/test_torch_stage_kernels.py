@@ -107,3 +107,15 @@ def test_stack_scales_match_jax_prescale():
         ours = torch.tensor(A) * scales[:, None, None]
         ref = np.asarray(_scaled_stack(jnp.asarray(A), 0.55, 3, sign))
         np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-7, atol=0)
+
+
+def test_dt_reaches_the_kernels_by_value_or_in_place():
+    """A number or a CPU scalar goes to the kernels by value; a tensor with
+    more than one element is refused."""
+    cpu = torch.device("cpu")
+    assert sk._dt_args(0.55, cpu) == (None, 0.55)
+    assert sk._dt_args(np.float32(0.25), cpu) == (None, 0.25)
+    assert sk._dt_args(torch.tensor(0.5, dtype=torch.float64), cpu) == \
+        (None, 0.5)
+    with pytest.raises(ValueError):
+        sk._dt_args(torch.ones(2), cpu)
