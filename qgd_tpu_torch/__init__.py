@@ -1,10 +1,14 @@
 """qgd_tpu_torch — the PyTorch/CUDA port of ``qgd_tpu`` (quantum optimal
 control, gate design), for NVIDIA Hopper.
 
-What is ported: the objective and exact discrete-adjoint gradient of the
-segmented route at segment length 1 with the Newton-Schulz stage solver
-(``solver="schulz"``), quadratic B-spline controls, the CNOT2/CNOT3
-problem builders and the stage-residual diagnostic. Control vectors are
+What is ported: gate design end to end. The optimizer drivers
+(``optimize_gate``, scipy L-BFGS-B on the host; ``optimize_gate_multistart``,
+batched L-BFGS on the device), the plain Lagrange route (forward history,
+adjoint sweep, ``objective_and_gradient``, ``discrete_adjoint``) with the
+``"lu"`` and ``"schulz"`` stage solvers, the segmented route at segment
+length 1 (``solver="schulz"``), the objective API, quadratic B-spline,
+GRAPE and carrier-wave controls, the Rabi/CNOT2/CNOT3 problem builders,
+setup checkpoints and the stage-residual diagnostic. Control vectors are
 batched as a leading tensor dimension. The two Pallas kernels of
 ``qgd_tpu/ops/pallas_step.py`` are hand-written CUDA kernels here
 (``csrc/lhs.cu``, ``csrc/rhs.cu``, wrapped in ``ops/stage_kernels.py``),
@@ -42,6 +46,9 @@ from .ops.hermite import (  # noqa: E402
 from .controls import (  # noqa: E402
     Control,
     BSpline2Control,
+    GRAPEControl,
+    GeneralGRAPEControl,
+    CarrierControl,
     control_tables,
     control_tables_at,
     total_control_parameters,
@@ -49,14 +56,54 @@ from .controls import (  # noqa: E402
 )
 from .objective import (  # noqa: E402
     infidelity_real,
+    infidelity,
+    guard_penalty_real,
+    guard_penalty,
     terminal_cost,
     terminal_cost_and_grad,
     host_realify_target,
+    objective_parts,
+    objective_value,
+    infidelity_plus_guard,
 )
-from .segmented import segmented_objective_and_gradient  # noqa: E402
+from .forward import (  # noqa: E402
+    hermite_forward_history,
+    eval_forward,
+    eval_forward_complex,
+    eval_adjoint,
+)
+from .adjoint import (  # noqa: E402
+    discrete_adjoint,
+    compute_guard_forcing,
+    compute_terminal_condition,
+    objective_and_gradient,
+)
+from .segmented import (  # noqa: E402
+    segmented_objective_and_gradient,
+    segmented_gradient,
+    segmented_objective_value,
+)
+from .optimize import (  # noqa: E402
+    OptimizationHistory,
+    optimize_gate,
+    optimize_gate_multistart,
+    gradient_descent,
+)
+from .checkpoint import (  # noqa: E402
+    save_setup,
+    load_setup,
+    resume_optimization,
+    verify_history_f64,
+)
 from .diagnostics import stage_residuals  # noqa: E402
 from . import models  # noqa: E402
-from .models import cnot3_problem, cnot3_target, cnot2_problem  # noqa: E402
+from .models import (  # noqa: E402
+    construct_rabi_prob,
+    cnot3_problem,
+    cnot3_carrier_frequencies,
+    cnot3_target,
+    cnot2_problem,
+)
 
 __version__ = "0.1.0"
 
@@ -74,18 +121,47 @@ __all__ = [
     "build_lhs",
     "Control",
     "BSpline2Control",
+    "GRAPEControl",
+    "GeneralGRAPEControl",
+    "CarrierControl",
     "control_tables",
     "control_tables_at",
     "total_control_parameters",
     "control_vector_slice",
     "infidelity_real",
+    "infidelity",
+    "guard_penalty_real",
+    "guard_penalty",
     "terminal_cost",
     "terminal_cost_and_grad",
     "host_realify_target",
+    "objective_parts",
+    "objective_value",
+    "infidelity_plus_guard",
+    "hermite_forward_history",
+    "eval_forward",
+    "eval_forward_complex",
+    "eval_adjoint",
+    "discrete_adjoint",
+    "compute_guard_forcing",
+    "compute_terminal_condition",
+    "objective_and_gradient",
     "segmented_objective_and_gradient",
+    "segmented_gradient",
+    "segmented_objective_value",
+    "OptimizationHistory",
+    "optimize_gate",
+    "optimize_gate_multistart",
+    "gradient_descent",
+    "save_setup",
+    "load_setup",
+    "resume_optimization",
+    "verify_history_f64",
     "stage_residuals",
     "models",
+    "construct_rabi_prob",
     "cnot3_problem",
+    "cnot3_carrier_frequencies",
     "cnot3_target",
     "cnot2_problem",
 ]

@@ -1,5 +1,5 @@
-"""Control pulses (counterpart of ``qgd_tpu.controls``): the protocol and
-the quadratic B-spline family."""
+"""Control pulses (counterpart of ``qgd_tpu.controls``): the protocol, the
+quadratic B-spline, GRAPE and carrier-wave families."""
 
 from .base import (
     Control,
@@ -10,6 +10,8 @@ from .base import (
     control_tables_at,
 )
 from .bspline import BSpline2Control
+from .analytic import GRAPEControl, GeneralGRAPEControl
+from .carrier import CarrierControl
 
 __all__ = [
     "Control",
@@ -19,4 +21,7 @@ __all__ = [
     "control_tables",
     "control_tables_at",
     "BSpline2Control",
+    "GRAPEControl",
+    "GeneralGRAPEControl",
+    "CarrierControl",
 ]

@@ -37,6 +37,11 @@ class Control:
                       m: int) -> torch.Tensor:
         raise NotImplementedError
 
+    def pq_derivatives(self, ts: torch.Tensor, pcof: torch.Tensor, m: int):
+        """Both tables ``(p, q)``. A control whose two tables share their
+        work overrides this to build them in one pass."""
+        return self.p_derivatives(ts, pcof, m), self.q_derivatives(ts, pcof, m)
+
 
 def as_control_tuple(controls) -> tuple:
     """Accept a bare control where a sequence is expected."""
@@ -70,9 +75,10 @@ def control_tables(controls, pcof: torch.Tensor, ts, m: int):
         return zeros, zeros.clone()
     ps, qs = [], []
     for ci, ctrl in enumerate(controls):
-        local = control_vector_slice(pcof, controls, ci)
-        ps.append(ctrl.p_derivatives(ts, local, m))
-        qs.append(ctrl.q_derivatives(ts, local, m))
+        p, q = ctrl.pq_derivatives(ts, control_vector_slice(pcof, controls,
+                                                            ci), m)
+        ps.append(p)
+        qs.append(q)
     return torch.stack(ps, dim=-1), torch.stack(qs, dim=-1)
 
 

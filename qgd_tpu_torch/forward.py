@@ -1,31 +1,69 @@
-"""Pieces of the Hermite propagation shared by the segmented gradient and
-the diagnostics (counterpart of the ``solver="schulz"`` parts of
-``qgd_tpu.forward``). Scenarios are a leading dimension of every tensor.
+"""Forward and adjoint propagation of the implicit Hermite scheme
+(counterpart of ``qgd_tpu.forward``). Scenarios are a leading dimension of
+every tensor: a control-vector batch ``pcof (S, N_params)`` gives histories
+``(S, T+1, 2N, B)``; a 1-D ``pcof`` gives ``(T+1, 2N, B)``.
+
+The step loop is a Python loop with one host-side iteration per step and
+no synchronisation inside it. What does not depend on the state is hoisted
+out of it when it fits (:func:`_use_precomputed_stages`): every step's stage
+matrix, built in one batched call, and its factorization (``solver="lu"``)
+or Newton-Schulz inverse (``solver="schulz"``).
 
 Kernel routing (``use_kernels=True``) follows the JAX package: the
 implicit-stage matrices go through the LHS kernel where JAX uses its
-Pallas kernel (f32, m >= 2, ``forward.py:135-148``), and the explicit half
-of a step goes through the RHS kernel for f32 tensors (JAX computes that
-half with XLA ops, ``segmented.py:203-205``). On the CPU the kernel
-wrappers run their plain versions; ``use_kernels=False`` is the plain
-route everywhere.
+Pallas kernel (f32, m >= 2, ``forward.py:135-148``; in the hoisted build
+that is one launch at batch S·T), and the explicit half of a step goes
+through the RHS kernel for f32 tensors (JAX computes that half with XLA
+ops). On the CPU the kernel wrappers run their plain versions;
+``use_kernels=False`` is the plain route everywhere.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
+
 import torch
 
+from .controls import as_control_tuple, control_tables
 from .ops.hermite import (
     assemble_generator_stack,
     scaled_derivatives,
     build_rhs,
     build_lhs,
 )
-from .ops.linalg import schulz_inverse_auto, inverse_stage_solve
+from .ops.linalg import (
+    schulz_inverse_auto,
+    inverse_stage_solve,
+    factorize_stages,
+    solve_factored,
+    stage_solve,
+    stage_solve_transposed,
+)
 from .ops.stage_kernels import (
     hermite_lhs_matrix_kernel_call,
     hermite_rhs_kernel_call,
 )
+from .problem import working_problem
+
+# Hoisting the per-step stage tensors out of the step loop costs
+# _hoisted_per_step(m) * nsteps * (2N)^2 * itemsize bytes per scenario;
+# cap it (QGD_HOIST_CAP_BYTES, read once at import, as in the JAX package).
+_PRECOMPUTE_BYTES_LIMIT = int(
+    os.environ.get("QGD_HOIST_CAP_BYTES", 1_500_000_000))
+
+# Scenario-steps per chunk of the batched builds that are not one kernel
+# launch (plain stage builds, Schulz inverses, table VJPs, guard sums):
+# bounds their temporaries (about 0.6 MB per scenario-step at 2N = 128,
+# m = 2, f32).
+_STEP_CHUNK = 2048
+
+
+def _chunks(T: int, S: int):
+    """``(a, b)`` ranges covering ``0..T`` with at most ``_STEP_CHUNK``
+    scenario-steps each."""
+    step = max(1, _STEP_CHUNK // max(S, 1))
+    return [(a, min(a + step, T)) for a in range(0, T, step)]
 
 
 def _time_grid(prob):
@@ -42,12 +80,47 @@ def _warm_budget(prob):
     return prob.schulz_warm_budget if prob.schulz_warm_budget >= 0 else None
 
 
+def _hoisted_per_step(m: int) -> int:
+    """Live ``(2N, 2N)`` tensors per step and scenario at the peak of the
+    hoisted routes: the adjoint sweep holds R, L and L's factors or
+    inverse (3); the forward's one LHS-kernel launch holds the m-level
+    generator stack and its output (m + 1)."""
+    return max(3, m + 1)
+
+
+def _use_precomputed_stages(prob, m: int) -> str | None:
+    """Which state-independent work to hoist out of the step loop:
+    ``"full"`` (stage matrices and their LU factors, ``solver="lu"``),
+    ``"schulz"`` (stage matrices and their warm-started Newton-Schulz
+    inverses) or ``None`` (build each step's stage inside the loop) when
+    the hoisted tensors would exceed the cap. The estimate is multiplied by
+    ``prob.hoist_batch_hint``, the number of scenarios batched."""
+    n2 = prob.real_system_size
+    itemsize = 4 if prob.dtype == "float32" else 8
+    hint = max(int(prob.hoist_batch_hint), 1)
+    need = _hoisted_per_step(m) * prob.nsteps * n2 * n2 * itemsize * hint
+    if need > _PRECOMPUTE_BYTES_LIMIT:
+        warnings.warn(
+            f"qgd_tpu_torch: hoisted stage precompute disabled: it would "
+            f"need ~{need / 1e9:.1f} GB (> {_PRECOMPUTE_BYTES_LIMIT / 1e9:.1f}"
+            f" GB cap) for nsteps={prob.nsteps}, 2N={n2}, batch_hint={hint};"
+            f" building each step's stage inside the step loop instead.",
+            stacklevel=3)
+        return None
+    return "schulz" if prob.solver == "schulz" else "full"
+
+
+def _lhs_kernel_applies(A_dtype, m: int, use_kernels: bool) -> bool:
+    """The f32, m >= 2 implicit-stage build goes through the LHS kernel."""
+    return use_kernels and m >= 2 and A_dtype == torch.float32
+
+
 def _stage_from_stack(A, m: int, dt, sign: float, use_kernels: bool = True):
     """Dense one-step matrices ``sum_j (sign*dt)^j c_j D_j`` from generator
     stacks ``A (..., m, n, n)`` -> ``(..., n, n)`` (``_stage_matrices`` of
-    the JAX package, on a stack the caller assembled once). The f32,
-    m >= 2 build goes through the LHS kernel."""
-    if use_kernels and m >= 2 and A.dtype == torch.float32:
+    the JAX package, on a stack the caller assembled). The f32, m >= 2
+    build is one LHS-kernel launch over the whole batch."""
+    if _lhs_kernel_applies(A.dtype, m, use_kernels):
         batch = A.shape[:-3]
         flat = A.reshape((-1,) + A.shape[-3:]).contiguous()
         # the kernel computes sum_j (-d)^j c_j D_j for input d: d = -sign*dt
@@ -57,6 +130,26 @@ def _stage_from_stack(A, m: int, dt, sign: float, use_kernels: bool = True):
         return out.reshape(batch + out.shape[-2:])
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     return build_rhs(scaled_derivatives(A, eye, m), sign * dt, m)
+
+
+def _stage_matrices(prob, m: int, dt, P, Q, sign: float,
+                    use_kernels: bool = True):
+    """Batched one-step matrices at the time points whose tables are
+    ``P, Q (S, T', m, N_ops)`` -> ``(S, T', n, n)``: the hoisted,
+    state-independent build. The generator stacks are assembled in chunks
+    of time points; the f32 build is then one LHS-kernel launch at batch
+    S·T' (the stacks, m per step, and the result alive together), the
+    plain build runs chunk by chunk."""
+    S, T = P.shape[:2]
+    n = prob.real_system_size
+    kernel = _lhs_kernel_applies(P.dtype, m, use_kernels)
+    shape = (S, T, m, n, n) if kernel else (S, T, n, n)
+    out = torch.empty(shape, dtype=P.dtype, device=P.device)
+    for a, b in _chunks(T, S):
+        A = assemble_generator_stack(prob, P[:, a:b], Q[:, a:b], m)
+        out[:, a:b] = A if kernel else _stage_from_stack(A, m, dt, sign,
+                                                         use_kernels=False)
+    return _stage_from_stack(out, m, dt, sign, use_kernels) if kernel else out
 
 
 def _stage_matrices_both(prob, m: int, dt, P, Q):
@@ -92,12 +185,23 @@ def _drift_stage_inverse(prob, m: int, dt, transpose: bool = False):
     return schulz_inverse_auto(lhs, prob.schulz_iters)
 
 
+def _hoisted_inverses(prob, m: int, dt, M, transpose: bool = False):
+    """Warm-started Newton-Schulz inverses (f32) of the hoisted stage
+    matrices ``M (S, T', n, n)``, built in chunks of time points."""
+    X0 = _drift_stage_inverse(prob, m, dt, transpose)
+    X = torch.empty(M.shape, dtype=torch.float32, device=M.device)
+    for a, b in _chunks(M.shape[1], M.shape[0]):
+        X[:, a:b] = schulz_inverse_auto(M[:, a:b], prob.schulz_iters, X0=X0,
+                                        warm_iters=_warm_budget(prob))
+    return X
+
+
 def _hermite_step(prob, m: int, dt, w, pq_n, pq_np1, schulz_X0=None,
                   use_kernels: bool = True, refine_iters=None):
-    """One ``solver="schulz"`` Hermite step ``w_n -> w_{n+1}`` for the
-    batch ``w (S, n, b)`` with control tables ``pq_* = (P, Q)`` of shape
-    ``(S, m, N_ops)``. Returns ``(w_next, lhs, rhs)``: the solve's result
-    and the system it solved (the diagnostics measure its residual)."""
+    """One Hermite step ``w_n -> w_{n+1}`` for the batch ``w (S, n, b)``
+    with control tables ``pq_* = (P, Q)`` of shape ``(S, m, N_ops)``.
+    Returns ``(w_next, lhs, rhs)``: the solve's result and the system it
+    solved (the diagnostics measure its residual)."""
     A_n = assemble_generator_stack(prob, pq_n[0], pq_n[1], m)
     A_np1 = assemble_generator_stack(prob, pq_np1[0], pq_np1[1], m)
     return _step_from_stacks(prob, m, dt, w, A_n, A_np1, schulz_X0,
@@ -105,31 +209,256 @@ def _hermite_step(prob, m: int, dt, w, pq_n, pq_np1, schulz_X0=None,
 
 
 def _step_from_stacks(prob, m: int, dt, w, A_n, A_np1, schulz_X0,
-                      use_kernels: bool, refine_iters):
-    rhs = _explicit_half(A_n, w, dt, m, use_kernels)
+                      use_kernels: bool, refine_iters,
+                      forcing_n=None, forcing_np1=None):
+    """One step from the generator stacks at both ends, with the stage
+    built and solved in the step (LHS kernel, then Schulz or LU). The
+    optional ``forcing_*`` ``(S, m, n, b)`` enter both halves; the forced
+    explicit half is plain torch (the RHS kernel has no forcing term)."""
+    if forcing_n is None:
+        rhs = _explicit_half(A_n, w, dt, m, use_kernels)
+    else:
+        rhs = build_rhs(scaled_derivatives(A_n, w, m, forcing=forcing_n),
+                        dt, m)
+    if forcing_np1 is not None:
+        # derivatives at t_{n+1} are affine in w_{n+1}: move the forced
+        # zero-state part to the right-hand side
+        G = scaled_derivatives(A_np1, torch.zeros_like(w), m,
+                               forcing=forcing_np1)
+        rhs = rhs - build_lhs(G, dt, m)
     lhs = _stage_from_stack(A_np1, m, dt, -1.0, use_kernels)
-    X = schulz_inverse_auto(lhs, prob.schulz_iters, X0=schulz_X0,
-                            warm_iters=_warm_budget(prob))
-    return inverse_stage_solve(lhs, X, rhs, refine_iters), lhs, rhs
+    if prob.solver == "schulz":
+        X = schulz_inverse_auto(lhs, prob.schulz_iters, X0=schulz_X0,
+                                warm_iters=_warm_budget(prob))
+        return inverse_stage_solve(lhs, X, rhs, refine_iters), lhs, rhs
+    return stage_solve(lhs, rhs), lhs, rhs
+
+
+def _step_states(prob, m: int, dt, P, Q, schulz_X0, use_kernels: bool = True,
+                 refine_iters=None, forcing=None):
+    """Propagate ``prob.w0`` through all ``T = prob.nsteps`` steps for the
+    scenario batch of tables ``P, Q (S, T+1, m, N_ops)`` (work dtype),
+    every stage built inside the loop, and yield the states ``w_1 .. w_T``
+    ``(S, 2N, B)``. ``forcing``, if given, is ``(S, T+1, m, 2N, B)``. Each
+    time point's generator stack is assembled once and serves as the
+    implicit side of one step and the explicit side of the next. A
+    generator, so that each caller stores the states as it needs: a
+    preallocated trajectory, or a list stacked at the end where autograd
+    records the loop (slice writes would copy the whole trajectory's
+    gradient once per step on the way back)."""
+    w = prob.w0.expand(P.shape[0], -1, -1)
+    A_n = assemble_generator_stack(prob, P[:, 0], Q[:, 0], m)
+    for k in range(prob.nsteps):
+        A_np1 = assemble_generator_stack(prob, P[:, k + 1], Q[:, k + 1], m)
+        f_n = f_np1 = None
+        if forcing is not None:
+            f_n, f_np1 = forcing[:, k], forcing[:, k + 1]
+        w, _, _ = _step_from_stacks(prob, m, dt, w, A_n, A_np1, schulz_X0,
+                                    use_kernels, refine_iters, f_n, f_np1)
+        yield w
+        A_n = A_np1
 
 
 def _forward_trajectory(prob, m: int, dt, P, Q, schulz_X0,
                         use_kernels: bool = True, refine_iters=None):
-    """Propagate ``prob.w0`` through all ``T = prob.nsteps`` steps for the
-    scenario batch of tables ``P, Q (S, T+1, m, N_ops)`` (work dtype).
-    Returns the trajectory ``(S, T+1, 2N, B)``. Each time point's generator
-    stack is assembled once and serves as the implicit side of one step
-    and the explicit side of the next."""
-    S, T = P.shape[0], prob.nsteps
-    w = prob.w0.expand(S, -1, -1)
-    traj = torch.empty((S, T + 1) + tuple(w.shape[1:]), dtype=w.dtype,
-                       device=w.device)
-    traj[:, 0] = w
-    A_n = assemble_generator_stack(prob, P[:, 0], Q[:, 0], m)
-    for k in range(T):
-        A_np1 = assemble_generator_stack(prob, P[:, k + 1], Q[:, k + 1], m)
-        w, _, _ = _step_from_stacks(prob, m, dt, w, A_n, A_np1, schulz_X0,
-                                    use_kernels, refine_iters)
-        traj[:, k + 1] = w
-        A_n = A_np1
+    """The trajectory ``(S, T+1, 2N, B)`` of :func:`_step_states`, written
+    into one preallocated tensor (the segmented route at L = 1)."""
+    w0 = prob.w0.expand(P.shape[0], -1, -1)
+    traj = torch.empty((w0.shape[0], prob.nsteps + 1) + tuple(w0.shape[1:]),
+                       dtype=w0.dtype, device=w0.device)
+    traj[:, 0] = w0
+    for k, w in enumerate(_step_states(prob, m, dt, P, Q, schulz_X0,
+                                       use_kernels, refine_iters), 1):
+        traj[:, k] = w
     return traj
+
+
+def _scenario_pcof(prob, pcof):
+    """``(pcof (S, N_params) float64 on prob.device, single)``: a 1-D
+    control vector becomes a batch of one. The autograd graph of a tensor
+    that requires grad is kept."""
+    pcof = torch.as_tensor(pcof, dtype=torch.float64).to(prob.device)
+    single = pcof.dim() == 1
+    return (pcof[None] if single else pcof), single
+
+
+def _working_tables(prob, controls, pcof, m: int):
+    """``(wprob, dt64, dt, P, Q)``: the working-dtype problem, the f64
+    step, the step in the work dtype (a tensor on the device) and the
+    control tables ``(S, T+1, m, N_ops)`` in the work dtype."""
+    dt64, ts = _time_grid(prob)
+    P, Q = control_tables(controls, pcof, ts, m)
+    wd = prob.work_dtype
+    dt = torch.tensor(dt64, dtype=torch.float64, device=prob.device).to(wd)
+    return working_problem(prob), dt64, dt, P.to(wd), Q.to(wd)
+
+
+def hermite_forward_history(prob, controls, pcof, order: int = 2,
+                            forcing=None, *, use_kernels: bool = True):
+    """Propagate all initial conditions through ``prob.nsteps`` steps.
+
+    Returns the state history ``(S, T+1, 2N, B)`` in the work dtype (index
+    0 is the initial state; no scenario dimension for a 1-D ``pcof``).
+    ``forcing``, if given, is ``(T+1, m, 2N, B)`` (shared by the scenarios)
+    or ``(S, T+1, m, 2N, B)``, the scaled forcing derivatives
+    ``f^{(j)}(t_n)/j!`` on the time grid. Differentiable by autograd when
+    ``pcof`` requires grad.
+    """
+    controls = as_control_tuple(controls)
+    m = order // 2
+    pcof, single = _scenario_pcof(prob, pcof)
+    wprob, _, dt, P, Q = _working_tables(prob, controls, pcof, m)
+    S, T = P.shape[0], prob.nsteps
+    w = wprob.w0.expand(S, -1, -1)
+    states = [w]
+
+    precompute = (_use_precomputed_stages(wprob, m) if forcing is None
+                  else None)
+    if precompute:
+        lhs_mats = _stage_matrices(wprob, m, dt, P[:, 1:], Q[:, 1:], -1.0,
+                                   use_kernels)
+        if precompute == "full":
+            lu, piv = factorize_stages(lhs_mats)
+
+            def solve(k, rhs):
+                return solve_factored(lu[:, k], piv[:, k], rhs)
+        else:
+            Xs = _hoisted_inverses(wprob, m, dt, lhs_mats)
+
+            def solve(k, rhs):
+                return inverse_stage_solve(lhs_mats[:, k], Xs[:, k], rhs)
+
+        for k in range(T):
+            A_n = assemble_generator_stack(wprob, P[:, k], Q[:, k], m)
+            w = solve(k, _explicit_half(A_n, w, dt, m, use_kernels))
+            states.append(w)
+    else:
+        if forcing is not None:
+            forcing = torch.as_tensor(forcing).to(prob.device,
+                                                  prob.work_dtype)
+            forcing = forcing.expand((S,) + tuple(forcing.shape[-4:]))
+        X0 = (_drift_stage_inverse(wprob, m, dt)
+              if prob.solver == "schulz" else None)
+        states.extend(_step_states(wprob, m, dt, P, Q, X0, use_kernels,
+                                   forcing=forcing))
+    hist = torch.stack(states, dim=1)
+    return hist[0] if single else hist
+
+
+def eval_forward(prob, controls, pcof, order: int = 2, *, save_every: int = 1,
+                 forcing=None, return_derivatives: bool = False,
+                 use_kernels: bool = True):
+    """Forward evolution: the real-stacked state history ``(S, n_saved, 2N,
+    B)`` (``(S, n_saved, m+1, 2N, B)`` with the scaled-derivative columns
+    when ``return_derivatives``; no scenario dimension for a 1-D ``pcof``).
+
+    ``save_every`` keeps every ``save_every``-th state (``nsteps`` must be
+    divisible by it). The states are those of the full history; the JAX
+    package's thinned propagation, which never holds the full history, is
+    not ported (ROADMAP.md).
+    """
+    controls = as_control_tuple(controls)
+    if prob.nsteps % save_every != 0:
+        raise ValueError("nsteps must be divisible by save_every")
+    hist = hermite_forward_history(prob, controls, pcof, order,
+                                   forcing=forcing, use_kernels=use_kernels)
+    saved = hist[..., ::save_every, :, :]
+    if not return_derivatives:
+        return saved
+    m = order // 2
+    _, ts = _time_grid(prob)
+    pcof_t, single = _scenario_pcof(prob, pcof)
+    P, Q = control_tables(controls, pcof_t, ts[::save_every], m)
+    if single:
+        P, Q = P[0], Q[0]
+    f_saved = None
+    if forcing is not None:
+        f_saved = torch.as_tensor(forcing).to(
+            prob.device, torch.float64)[..., ::save_every, :, :, :]
+    A = assemble_generator_stack(prob, P, Q, m)
+    return scaled_derivatives(A, saved.to(torch.float64), m, forcing=f_saved)
+
+
+def eval_forward_complex(prob, controls, pcof, order: int = 2, **kwargs):
+    """Complex history ``(..., n_saved, N, B)``."""
+    hist = eval_forward(prob, controls, pcof, order, **kwargs)
+    N = prob.N_tot_levels
+    return torch.complex(hist[..., :N, :], hist[..., N:, :])
+
+
+def eval_adjoint(prob, controls, pcof, terminal_condition, order: int = 2,
+                 forcing=None):
+    """Backward adjoint propagation: with the forward step
+    ``LHS_{n+1} w_{n+1} = RHS_n w_n`` the multipliers satisfy::
+
+        lambda_N = terminal_condition
+        mu_n     = RHS_n^T lambda_{n+1} + forcing_n
+        lambda_n = LHS_n^{-T} mu_n                 for n = N-1 .. 1
+
+    ``terminal_condition`` is ``(S, 2N, B)`` (or ``(2N, B)`` for a 1-D
+    ``pcof``), ``forcing`` the per-step adjoint source ``(S, T+1, 2N, B)``
+    or ``(T+1, 2N, B)``. Returns ``(S, T+1, 2N, B)`` in the work dtype with
+    index n holding lambda_n; index 0 is zero. The stage matrices here are
+    plain torch, as in JAX: the sweep launches no kernel.
+    """
+    controls = as_control_tuple(controls)
+    m = order // 2
+    pcof, single = _scenario_pcof(prob, pcof)
+    wprob, _, dt, P, Q = _working_tables(prob, controls, pcof, m)
+    wd, n = prob.work_dtype, prob.nsteps
+    lam = torch.as_tensor(terminal_condition).to(prob.device, wd)
+    lam_N = lam[None] if single else lam
+    if forcing is not None:
+        forcing = torch.as_tensor(forcing).to(prob.device)
+        if single:
+            forcing = forcing[None]
+
+    def f(k):
+        if forcing is None:
+            return 0.0
+        return forcing[:, k].to(wd)
+
+    lams = [lam_N]
+    lam = lam_N
+    if _use_precomputed_stages(wprob, m):
+        # R and L at t_1..t_{N-1} (index k-1 holds time k), chunked
+        S = P.shape[0]
+        shape = (S, n - 1, wprob.real_system_size, wprob.real_system_size)
+        R = torch.empty(shape, dtype=wd, device=prob.device)
+        L = torch.empty(shape, dtype=wd, device=prob.device)
+        for a, b in _chunks(n - 1, S):
+            R[:, a:b], L[:, a:b] = _stage_matrices_both(
+                wprob, m, dt, P[:, 1 + a:1 + b], Q[:, 1 + a:1 + b])
+        LT = L.transpose(-1, -2)
+        if prob.solver == "lu":
+            lu, piv = factorize_stages(LT)
+
+            def solve(k, mu):
+                return solve_factored(lu[:, k], piv[:, k], mu)
+        else:
+            XT = _hoisted_inverses(wprob, m, dt, LT, transpose=True)
+
+            def solve(k, mu):
+                return inverse_stage_solve(LT[:, k], XT[:, k], mu)
+
+        for k in range(n - 1, 0, -1):
+            lam = solve(k - 1, R[:, k - 1].transpose(-1, -2) @ lam + f(k))
+            lams.append(lam)
+    else:
+        X0T = (_drift_stage_inverse(wprob, m, dt, transpose=True)
+               if prob.solver == "schulz" else None)
+        for k in range(n - 1, 0, -1):
+            R, L = _stage_matrices_both(wprob, m, dt, P[:, k], Q[:, k])
+            mu = R.transpose(-1, -2) @ lam + f(k)
+            if prob.solver == "schulz":
+                LT = L.transpose(-1, -2)
+                lam = inverse_stage_solve(
+                    LT, schulz_inverse_auto(LT, prob.schulz_iters, X0=X0T,
+                                            warm_iters=_warm_budget(wprob)),
+                    mu)
+            else:
+                lam = stage_solve_transposed(L, mu)
+            lams.append(lam)
+    lams.append(torch.zeros_like(lam_N))
+    hist = torch.stack(lams[::-1], dim=1)
+    return hist[0] if single else hist

@@ -11,7 +11,9 @@ from .builders import (
     multi_qudit_hamiltonian_dispersive,
     control_ops,
     DispersiveProblem,
+    construct_rabi_prob,
     cnot3_problem,
+    cnot3_carrier_frequencies,
     cnot3_target,
     cnot2_problem,
 )
@@ -27,7 +29,9 @@ __all__ = [
     "multi_qudit_hamiltonian_dispersive",
     "control_ops",
     "DispersiveProblem",
+    "construct_rabi_prob",
     "cnot3_problem",
+    "cnot3_carrier_frequencies",
     "cnot3_target",
     "cnot2_problem",
 ]

@@ -167,6 +167,18 @@ def DispersiveProblem(subsystem_sizes, essential_subsystem_sizes,
         H, sym_ops, asym_ops, U0, tf, nsteps, n_ess, W, **kwargs)
 
 
+def construct_rabi_prob(tf=np.pi, nsteps=100, **kwargs) -> SchrodingerProblem:
+    """2-level Rabi oscillator, zero drift, one control pair; for duration
+    ``pi`` an amplitude |Omega| = 0.5 pulse is a SWAP gate. ``kwargs`` as
+    for :func:`DispersiveProblem` (the problem is on the card unless
+    ``device="cpu"``)."""
+    a = np.array([[0.0, 1.0], [0.0, 0.0]])
+    H = np.zeros((2, 2), dtype=np.complex128)
+    return schrodinger_problem_complex(
+        H, [a + a.T], [a - a.T], np.eye(2, dtype=np.complex128),
+        tf, nsteps, 2, **kwargs)
+
+
 _CNOT3_FREQS_GHZ = (4.10336, 4.81831, 7.8447)
 
 
@@ -186,6 +198,20 @@ def cnot3_problem(tf=550.0, nsteps=5500, **kwargs) -> SchrodingerProblem:
     ])
     return DispersiveProblem(
         (4, 4, 4), (2, 2, 2), freqs, freqs, kerr, tf, nsteps, **kwargs)
+
+
+def cnot3_carrier_frequencies():
+    """Carrier frequencies (rad/ns) for the CNOT3 controls, one row per
+    oscillator: ``[0, -chi_qp, -chi_qr]``, the cross-Kerr shifts of each
+    oscillator's 0<->1 transition conditioned on the other two. With
+    ``BSpline2Control(10)`` envelopes: 3 freqs x 10 splines x 2 quadratures
+    x 3 oscillators = 180 parameters."""
+    x12, x13, x23 = 2 * np.pi * np.array([0.01, 0.001, 0.001])
+    return [
+        [0.0, -x12, -x13],
+        [0.0, -x12, -x23],
+        [0.0, -x13, -x23],
+    ]
 
 
 def cnot3_target(tf=550.0, rotating_frame=True) -> np.ndarray:

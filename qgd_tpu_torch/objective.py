@@ -1,13 +1,15 @@
-"""Gate infidelity and terminal costs (counterpart of the parts of
-``qgd_tpu.objective`` the ported gradient uses). States are real-stacked
-``(..., 2N, B)``; every reduction is over the last two dimensions, so
-leading scenario dimensions pass through.
+"""Gate infidelity, guard-penalty and ridge objective (counterpart of
+``qgd_tpu.objective``). States are real-stacked ``(..., 2N, B)``; every
+reduction is over the last two dimensions, so leading scenario dimensions
+pass through. Objectives reduce in float64.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .controls import as_control_tuple
 
 
 def _target_T(target_real: torch.Tensor, N_tot: int) -> torch.Tensor:
@@ -43,6 +45,16 @@ def host_realify_target(target) -> np.ndarray:
     return t
 
 
+def target_on_device(prob, target) -> torch.Tensor:
+    """The real-stacked float64 target ``(2N, B)`` on ``prob.device``."""
+    return torch.as_tensor(host_realify_target(target), device=prob.device)
+
+
+def ridge_penalty(pcof, strength: float):
+    """``strength * ||pcof||^2 / N_params`` per control vector."""
+    return strength * torch.sum(pcof * pcof, dim=-1) / pcof.shape[-1]
+
+
 def terminal_cost(final_state, target_real, N_ess: int,
                   cost_type: str = "Infidelity"):
     """Terminal cost ``J1(w_N)``: ``Infidelity`` (default), ``Tracking``
@@ -76,3 +88,79 @@ def terminal_cost_and_grad(final_state, target_real, N_ess: int,
     if cost_type == "Norm":
         return 0.5 * _inner(final_state, final_state), final_state
     raise ValueError(f"Invalid cost type: {cost_type}")
+
+
+def infidelity(psi, target, N_ess: int):
+    """Complex-argument wrapper of :func:`infidelity_real`: ``psi`` and
+    ``target`` are ``(..., N, B)`` (or ``(N,)``) complex."""
+    psi = torch.as_tensor(psi)
+    target = torch.as_tensor(target)
+    if psi.dim() == 1:
+        psi, target = psi[:, None], target[:, None]
+    psi_r = torch.cat([psi.real, psi.imag], dim=-2).to(torch.float64)
+    tgt_r = torch.cat([target.real, target.imag], dim=-2).to(torch.float64)
+    return infidelity_real(psi_r, tgt_r.to(psi_r.device), N_ess)
+
+
+def guard_penalty_real(history, dt, total_time, W):
+    """Trapezoid in time of ``<w, W w> * dt/T`` over the state history
+    ``(..., T, 2N, B)`` (any float dtype), reduced in float64 in chunks of
+    time points -> ``(...)``."""
+    from .forward import _chunks
+
+    W = torch.as_tensor(W, dtype=torch.float64).to(history.device)
+    T = history.shape[-3]
+    per_t = torch.empty(history.shape[:-2], dtype=torch.float64,
+                        device=history.device)
+    for a, b in _chunks(T, int(np.prod(history.shape[:-3], dtype=np.int64))):
+        h = history[..., a:b, :, :].to(torch.float64)
+        per_t[..., a:b] = torch.sum(h * (W @ h), dim=(-2, -1))
+    weights = torch.ones(T, dtype=torch.float64, device=history.device)
+    weights[0] = weights[-1] = 0.5
+    return torch.sum(weights * per_t, dim=-1) * dt / total_time
+
+
+def guard_penalty(history_complex, dt, total_time, W):
+    """Complex wrapper: history ``(..., T, N, B)``."""
+    h = torch.as_tensor(history_complex)
+    return guard_penalty_real(torch.cat([h.real, h.imag], dim=-2), dt,
+                              total_time, W)
+
+
+def objective_parts(prob, controls, pcof, target, order: int = 2,
+                    ridge_penalty_strength: float = 0.0,
+                    cost_type: str = "Infidelity"):
+    """``(terminal cost, guard penalty, ridge)`` from one forward solve of
+    the plain route, each ``(S,)`` for ``pcof (S, N_params)`` (scalars for
+    a 1-D ``pcof``). The ridge term is ``lambda_r ||pcof||^2 / N_params``.
+    Differentiable by autograd when ``pcof`` requires grad."""
+    from .forward import _scenario_pcof, eval_forward
+
+    controls = as_control_tuple(controls)
+    pcof, single = _scenario_pcof(prob, pcof)
+    hist = eval_forward(prob, controls, pcof, order)
+    j1 = terminal_cost(hist[:, -1].to(torch.float64),
+                       target_on_device(prob, target), prob.N_ess_levels,
+                       cost_type)
+    guard = guard_penalty_real(hist, prob.tf / prob.nsteps, prob.tf,
+                               prob.guard_subspace_projector)
+    ridge = ridge_penalty(pcof, ridge_penalty_strength)
+    if single:
+        return j1[0], guard[0], ridge[0]
+    return j1, guard, ridge
+
+
+def objective_value(prob, controls, pcof, target, order: int = 2,
+                    ridge_penalty_strength: float = 0.0,
+                    cost_type: str = "Infidelity"):
+    """Total objective (infidelity + guard + ridge)."""
+    j1, guard, ridge = objective_parts(
+        prob, controls, pcof, target, order, ridge_penalty_strength,
+        cost_type)
+    return j1 + guard + ridge
+
+
+def infidelity_plus_guard(prob, controls, pcof, target, order: int = 2):
+    """Terminal infidelity plus guard penalty."""
+    j1, guard, _ = objective_parts(prob, controls, pcof, target, order)
+    return j1 + guard

@@ -11,6 +11,10 @@ from .hermite import (
 )
 from .linalg import (
     REFINE_SWEEPS_F32,
+    factorize_stages,
+    solve_factored,
+    stage_solve,
+    stage_solve_transposed,
     schulz_inverse,
     schulz_universal_init,
     schulz_warm_iters,
@@ -34,6 +38,10 @@ __all__ = [
     "build_rhs",
     "build_lhs",
     "REFINE_SWEEPS_F32",
+    "factorize_stages",
+    "solve_factored",
+    "stage_solve",
+    "stage_solve_transposed",
     "schulz_inverse",
     "schulz_universal_init",
     "schulz_warm_iters",

@@ -59,15 +59,20 @@ def assemble_generator_stack(prob, p_vals: torch.Tensor,
 
 
 def scaled_derivatives(A_stack: torch.Tensor, W0: torch.Tensor,
-                       m: int) -> torch.Tensor:
+                       m: int, forcing: torch.Tensor | None = None
+                       ) -> torch.Tensor:
     """Leibniz recursion: ``A_stack (..., m, n, n)``, ``W0 (..., n, b)`` ->
     ``(..., m+1, n, b)`` scaled derivatives (``W0`` broadcasts, so the
-    identity gives the dense one-step matrices)."""
+    identity gives the dense one-step matrices). ``forcing (..., m, n, b)``,
+    if given, holds the scaled forcing derivatives ``f^{(j)}/j!``, added at
+    level ``j`` before the ``1/(j+1)`` factor."""
     Ws = [W0]
     for j in range(m):
         acc = A_stack[..., j, :, :] @ Ws[0]
         for i in range(1, j + 1):
             acc = acc + A_stack[..., j - i, :, :] @ Ws[i]
+        if forcing is not None:
+            acc = acc + forcing[..., j, :, :]
         Ws.append(acc / (j + 1))
     Ws = torch.broadcast_tensors(*Ws)
     return torch.stack(Ws, dim=-3)

@@ -1,6 +1,10 @@
-"""Stage solvers of the ported path (counterpart of the matmul-only part
-of ``qgd_tpu.ops.linalg``): Newton-Schulz approximate inverses and the
-iterative-refinement stage solve.
+"""Stage solvers (counterpart of ``qgd_tpu.ops.linalg``): the direct LU
+solves of ``solver="lu"`` (library ``torch.linalg`` calls, as the JAX
+package leaves them to XLA), Newton-Schulz approximate inverses and the
+iterative-refinement stage solve of ``solver="schulz"``. Every solve is
+differentiable by autograd. The JAX package's f32-LU-with-f64-refinement
+solve exists for a backend without f64 LU; the card has one, so it is not
+here.
 
 All matmuls run at full fp32 or f64: the package pins TF32 off at import
 (``qgd_tpu_torch/__init__.py``). The JAX package runs the Newton-Schulz
@@ -17,6 +21,33 @@ import torch
 # 2 (QGD_REFINE_SWEEPS_F32) and its benchmark sets 3; the 1e-7 stage
 # residual guard was only ever measured at 3, so 3 is the default here.
 REFINE_SWEEPS_F32 = 3
+
+
+def factorize_stages(M: torch.Tensor):
+    """Batched LU factorization ``(lu, piv)`` of stage matrices
+    ``M (..., n, n)``, in ``M.dtype``. No singularity check: that would
+    wait for the device (as in JAX, a singular stage gives non-finite
+    values)."""
+    lu, piv, _ = torch.linalg.lu_factor_ex(M)
+    return lu, piv
+
+
+def solve_factored(lu_n: torch.Tensor, piv_n: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """Solve ``M x = b`` with the factorization ``(lu_n, piv_n)`` of ``M``
+    from :func:`factorize_stages`, in the factors' dtype."""
+    return torch.linalg.lu_solve(lu_n, piv_n, b)
+
+
+def stage_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Dense solve ``A X = B`` of the implicit stage (batched), without the
+    singularity check that would wait for the device."""
+    return torch.linalg.solve_ex(A, B)[0]
+
+
+def stage_solve_transposed(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve ``A^T X = B`` (terminal-condition and adjoint solves)."""
+    return stage_solve(A.transpose(-1, -2), B)
 
 
 def schulz_inverse(M: torch.Tensor, X0: torch.Tensor,

@@ -4,8 +4,8 @@ A frozen dataclass of tensors on one device, the card unless the caller
 passes ``device="cpu"``. Only the fields the ported objective + gradient
 path reads are carried: the split drift and control operators, the
 initial conditions, the guard projector, ``tf`` and the static solver
-settings (``solver``, ``schulz_iters``, ``schulz_warm_budget``,
-``dtype``).
+settings (``solver`` ``"lu"`` or ``"schulz"``, ``schulz_iters``,
+``schulz_warm_budget``, ``dtype``, ``hoist_batch_hint``).
 
 State representation is the real-stacked ``w = [u; v]`` of the reference
 (``A = [[S, K], [-K, S]]`` with ``K = Re(H)``, ``S = Im(H)``); see
@@ -52,6 +52,12 @@ class SchrodingerProblem:
     schulz_warm_budget: int = -1
     # Propagation dtype: "float64" or "float32" (objectives reduce in f64).
     dtype: str = "float64"
+    # How many scenario copies of the hoisted per-step stage tensors coexist
+    # (stage matrices depend on pcof, so a scenario batch multiplies them).
+    # Read by the plain route's hoisting memory cap
+    # (forward._use_precomputed_stages); callers batching S scenarios set
+    # it to S, as optimize_gate_multistart does.
+    hoist_batch_hint: int = 1
 
     @property
     def work_dtype(self) -> torch.dtype:
@@ -82,6 +88,8 @@ class SchrodingerProblem:
         """Real-stacked initial states, shape (2N, N_ic)."""
         return torch.cat([self.u0, self.v0], dim=0)
 
+
+SOLVERS = ("lu", "schulz")
 
 _ARRAY_FIELDS = ("system_sym", "system_asym", "sym_operators",
                  "asym_operators", "u0", "v0", "guard_subspace_projector")
@@ -175,6 +183,10 @@ def schrodinger_problem(system_sym, system_asym, sym_operators,
                    u0, v0, guard_subspace_projector, N_ess_levels)
     if dtype not in ("float64", "float32"):
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
+    if solver not in SOLVERS:
+        raise NotImplementedError(
+            f"solver={solver!r}: the port has {SOLVERS} (the matrix-free "
+            "'gmres' route is ROADMAP.md queue A item 13)")
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

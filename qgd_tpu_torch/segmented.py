@@ -1,6 +1,7 @@
 """Objective + exact discrete-adjoint gradient over a batch of control
 vectors (counterpart of ``qgd_tpu.segmented.segmented_objective_and_gradient``,
-``solver="schulz"``, at segment length L = 1).
+``solver="schulz"``, at segment length L = 1), and the value-only forward
+the multistart line search probes (``segmented_objective_value``).
 
 At L = 1 every segment is one step, so the stored segment-boundary states
 ARE the full trajectory ``(S, T+1, 2N, B)`` and the backward re-forward is
@@ -26,13 +27,21 @@ import torch
 
 from .controls import as_control_tuple, control_tables, control_tables_at
 from .forward import (
+    _chunks,
     _time_grid,
+    _scenario_pcof,
     _warm_budget,
     _drift_stage_inverse,
     _forward_trajectory,
     _stage_matrices_both,
 )
-from .objective import host_realify_target, terminal_cost_and_grad
+from .objective import (
+    guard_penalty_real,
+    ridge_penalty,
+    target_on_device,
+    terminal_cost,
+    terminal_cost_and_grad,
+)
 from .ops.hermite import (
     assemble_generator_stack,
     scaled_derivatives,
@@ -46,18 +55,6 @@ from .ops.linalg import (
 )
 from .problem import working_problem
 
-# Scenario-steps per chunk of the table VJP: bounds the autograd graph
-# (about 0.6 MB per scenario-step at 2N = 128, m = 2, f32).
-_TABLE_VJP_CHUNK = 2048
-
-
-def _guard_quad(W, traj, tau):
-    """f64 sum over time of ``tau_t <w_t, W w_t>`` for ``traj (S, C, 2N,
-    B)`` -> ``(S,)``."""
-    h = traj.to(torch.float64)
-    per_t = torch.sum(h * (W @ h), dim=(-2, -1))
-    return torch.sum(tau * per_t, dim=-1)
-
 
 def _table_cot(wprob, m: int, p, q, w, cot):
     """VJP of ``scaled_derivatives(assemble_generator_stack(p, q), w)`` with
@@ -69,6 +66,41 @@ def _table_cot(wprob, m: int, p, q, w, cot):
         Ws = scaled_derivatives(assemble_generator_stack(wprob, p, q, m), w,
                                 m)
         return torch.autograd.grad(Ws, (p, q), cot)
+
+
+def _l1_batch(prob, pcof, n_segments: int):
+    """Check the route and return ``(pcof (S, N_params), single)``."""
+    if prob.solver != "schulz":
+        raise NotImplementedError(
+            f"solver={prob.solver!r}: only 'schulz' is ported")
+    T = prob.nsteps
+    # the automatic rule picks L = 1, the only segment length ported so far
+    n_seg = n_segments if n_segments > 0 else T
+    if n_seg != T:
+        raise NotImplementedError(
+            f"n_segments={n_seg}: only segment length 1 (n_segments = "
+            f"nsteps = {T}) is ported")
+    pcof, single = _scenario_pcof(prob, pcof)
+    return pcof.detach(), single
+
+
+def _forward(prob, m: int, P, Q, use_kernels: bool, refine_sweeps):
+    """The L = 1 forward pass from the f64 tables ``P, Q (S, T+1, m,
+    N_ops)``: returns ``(traj, guard, wprob, Pw, Qw, dt, sweeps)``."""
+    dt64 = prob.tf / prob.nsteps
+    wd = prob.work_dtype
+    wprob = working_problem(prob)
+    Pw, Qw = P.detach().to(wd), Q.detach().to(wd)
+    dt = torch.tensor(dt64, dtype=torch.float64, device=prob.device).to(wd)
+    if wd == torch.float32:
+        sweeps = REFINE_SWEEPS_F32 if refine_sweeps is None else refine_sweeps
+    else:
+        sweeps = 4
+    X0 = _drift_stage_inverse(wprob, m, dt)
+    traj = _forward_trajectory(wprob, m, dt, Pw, Qw, X0, use_kernels, sweeps)
+    guard = guard_penalty_real(traj, dt64, prob.tf,
+                               prob.guard_subspace_projector)
+    return traj, guard, wprob, Pw, Qw, dt, sweeps
 
 
 def segmented_objective_and_gradient(prob, controls, pcof, target,
@@ -91,24 +123,11 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
     of f32 stage solves (default :data:`REFINE_SWEEPS_F32`); f64 solves take
     4, as in the JAX package.
     """
-    if prob.solver != "schulz":
-        raise NotImplementedError(
-            f"solver={prob.solver!r}: only 'schulz' is ported")
     controls = as_control_tuple(controls)
+    pcof, single = _l1_batch(prob, pcof, n_segments)
     dev = prob.device
-    pcof = torch.as_tensor(pcof, dtype=torch.float64).to(dev).detach()
-    single = pcof.dim() == 1
-    if single:
-        pcof = pcof[None]
-    target_real = torch.as_tensor(host_realify_target(target), device=dev)
-
+    target_real = target_on_device(prob, target)
     T = prob.nsteps
-    # the automatic rule picks L = 1, the only segment length ported so far
-    n_seg = n_segments if n_segments > 0 else T
-    if n_seg != T:
-        raise NotImplementedError(
-            f"n_segments={n_seg}: only segment length 1 (n_segments = "
-            f"nsteps = {T}) is ported")
     m = order // 2
     S = pcof.shape[0]
 
@@ -117,34 +136,20 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
         pcof_leaf = pcof.clone().requires_grad_(True)
         P, Q = control_tables(controls, pcof_leaf, ts, m)
     wd = prob.work_dtype
-    wprob = working_problem(prob)
-    Pw, Qw = P.detach().to(wd), Q.detach().to(wd)
-    dt = torch.tensor(dt64, dtype=torch.float64, device=dev).to(wd)
-    if wd == torch.float32:
-        sweeps = REFINE_SWEEPS_F32 if refine_sweeps is None else refine_sweeps
-    else:
-        sweeps = 4
-    warm = _warm_budget(wprob)
-    X0 = _drift_stage_inverse(wprob, m, dt)
-    X0T = _drift_stage_inverse(wprob, m, dt, transpose=True)
 
     # ---------------- forward: trajectory, guard penalty ------------------
-    traj = _forward_trajectory(wprob, m, dt, Pw, Qw, X0, use_kernels, sweeps)
+    traj, guard, wprob, Pw, Qw, dt, sweeps = _forward(prob, m, P, Q,
+                                                      use_kernels,
+                                                      refine_sweeps)
     W = prob.guard_subspace_projector
     tau = torch.ones(T + 1, dtype=torch.float64, device=dev)
     tau[0] = tau[-1] = 0.5
-    chunk = max(1, _TABLE_VJP_CHUNK // S)
-    guard_sum = torch.zeros(S, dtype=torch.float64, device=dev)
-    for a in range(0, T + 1, chunk):
-        b = min(a + chunk, T + 1)
-        guard_sum = guard_sum + _guard_quad(W, traj[:, a:b], tau[a:b])
-    guard = guard_sum * dt64 / prob.tf
 
     w_final64 = traj[:, T].to(torch.float64)
     j1, dj1 = terminal_cost_and_grad(w_final64, target_real,
                                      prob.N_ess_levels, cost_type)
     n_par = pcof.shape[-1]
-    ridge = ridge_penalty_strength * torch.sum(pcof * pcof, dim=-1) / n_par
+    ridge = ridge_penalty(pcof, ridge_penalty_strength)
 
     # ---------------- terminal condition ----------------------------------
     guard_scale = 2.0 * dt64 / prob.tf
@@ -162,6 +167,8 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
     # ---------------- backward lambda sweep --------------------------------
     # lam[:, n] = lambda_n for n = 0..T; lam[:, T+1] = 0 makes the terminal
     # cotangent -w_lhs lam_T the same formula as every step's.
+    X0T = _drift_stage_inverse(wprob, m, dt, transpose=True)
+    warm = _warm_budget(wprob)
     lam = torch.empty((S, T + 2) + tuple(lam_T.shape[1:]), dtype=wd,
                       device=dev)
     lam[:, T] = lam_T
@@ -191,8 +198,7 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
     Q_cot = torch.cat([Qw[:, :T], q_f[:, None]], dim=1)
     cotP = torch.empty_like(P_cot)
     cotQ = torch.empty_like(Q_cot)
-    for a in range(0, T + 1, chunk):
-        b = min(a + chunk, T + 1)
+    for a, b in _chunks(T + 1, S):
         cot = (w_rhs * lam[:, a + 1:b + 1, None]
                - w_lhs * lam[:, a:b, None])
         cotP[:, a:b], cotQ[:, a:b] = _table_cot(
@@ -205,3 +211,35 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
     if single:
         return (j1[0], guard[0], ridge[0]), grad[0]
     return (j1, guard, ridge), grad
+
+
+def segmented_gradient(prob, controls, pcof, target, order: int = 4,
+                       cost_type: str = "Infidelity", n_segments: int = 0):
+    """Gradient only (the ``discrete_adjoint`` shape)."""
+    _, grad = segmented_objective_and_gradient(
+        prob, controls, pcof, target, order, cost_type=cost_type,
+        n_segments=n_segments)
+    return grad
+
+
+def segmented_objective_value(prob, controls, pcof, target, order: int = 4,
+                              cost_type: str = "Infidelity",
+                              ridge_penalty_strength: float = 0.0,
+                              n_segments: int = 0, *,
+                              use_kernels: bool = True,
+                              refine_sweeps: int | None = None):
+    """Value only (one forward pass, no adjoint work): ``j1 + guard +
+    ridge``, ``(S,)`` float64 (a scalar for a 1-D ``pcof``). The line-search
+    probe of ``optimize_gate_multistart(gradient_route="segmented")``; both
+    kernels run at batch S."""
+    controls = as_control_tuple(controls)
+    pcof, single = _l1_batch(prob, pcof, n_segments)
+    m = order // 2
+    _, ts = _time_grid(prob)
+    P, Q = control_tables(controls, pcof, ts, m)
+    traj, guard, *_ = _forward(prob, m, P, Q, use_kernels, refine_sweeps)
+    j1 = terminal_cost(traj[:, -1].to(torch.float64),
+                       target_on_device(prob, target), prob.N_ess_levels,
+                       cost_type)
+    val = j1 + guard + ridge_penalty(pcof, ridge_penalty_strength)
+    return val[0] if single else val

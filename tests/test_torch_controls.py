@@ -1,5 +1,6 @@
-"""qgd_tpu_torch B-spline control tables and their pcof VJP against
-qgd_tpu.controls, float64 at 1e-14."""
+"""qgd_tpu_torch control tables (B-spline, GRAPE, carrier-wave) and
+their pcof VJP against qgd_tpu.controls, float64 at 1e-14 (relative and
+absolute: the same arithmetic in the same order)."""
 
 import numpy as np
 import pytest
@@ -73,6 +74,62 @@ def test_tables_at_final_time_and_knot_edges_match_jax():
                                atol=TOL)
     np.testing.assert_allclose(q_f.numpy(), np.asarray(qj_f), rtol=TOL,
                                atol=TOL)
+
+
+def _families(pkg, tf):
+    """Carrier-wave controls over B-spline and GRAPE envelopes with the
+    CNOT3 sideband frequencies, and piecewise-constant and -quadratic
+    GRAPE."""
+    freqs = qgd_tpu.models.cnot3_carrier_frequencies()
+    return (pkg.CarrierControl(pkg.BSpline2Control(10, tf), freqs[0]),
+            pkg.CarrierControl(pkg.GRAPEControl(4, tf), freqs[1]),
+            pkg.GRAPEControl(3, tf),
+            pkg.GeneralGRAPEControl(5, tf, 2))
+
+
+def test_carrier_and_grape_tables_and_vjp_match_jax():
+    """At m = 3 (order 6); the m = 1 and m = 2 tables are its first
+    columns."""
+    tf, nsteps, m = 550.0, 24, 3
+    jc, tc = _families(qgd_tpu, tf), _families(qt, tf)
+    n_par = qt.total_control_parameters(tc)
+    assert n_par == qgd_tpu.controls.total_control_parameters(jc) == 100
+    rng = np.random.default_rng(11)
+    pcof = rng.standard_normal((2, n_par)) * 0.01
+    ts = np.arange(nsteps + 1, dtype=np.float64) * (tf / nsteps)
+    cot = rng.standard_normal((2, 2, nsteps + 1, m, len(tc)))
+    pc = torch.tensor(pcof, requires_grad=True)
+    P, Q = qt.control_tables(tc, pc, torch.tensor(ts), m)
+    (grad,) = torch.autograd.grad((P, Q), pc,
+                                  (torch.tensor(cot[0]), torch.tensor(cot[1])))
+
+    @jax.jit
+    def tables_and_vjp(p, c0, c1):
+        (Pj, Qj), vjp = jax.vjp(lambda x: j_tables(jc, x, jnp.asarray(ts), m),
+                                p)
+        return Pj, Qj, vjp((c0, c1))[0]
+
+    for s in range(2):
+        Pj, Qj, gj = tables_and_vjp(jnp.asarray(pcof[s]),
+                                    jnp.asarray(cot[0, s]),
+                                    jnp.asarray(cot[1, s]))
+        for ours, ref in ((P[s].detach(), Pj), (Q[s].detach(), Qj),
+                          (grad[s], gj)):
+            np.testing.assert_allclose(ours.numpy(), np.asarray(ref),
+                                       rtol=TOL, atol=TOL)
+
+
+def test_cnot3_carrier_configuration():
+    """The flagship controls: 3 x CarrierControl(BSpline2Control(10), 3
+    sideband frequencies) = 180 parameters, frequencies as in JAX."""
+    freqs = qt.cnot3_carrier_frequencies()
+    np.testing.assert_array_equal(
+        np.asarray(freqs),
+        np.asarray(qgd_tpu.models.cnot3_carrier_frequencies()))
+    ctrls = [qt.CarrierControl(qt.BSpline2Control(10, 550.0), f)
+             for f in freqs]
+    assert qt.total_control_parameters(ctrls) == 180
+    assert ctrls[0].N_freq == 3 and ctrls[0].N_coeffs_per_frequency == 20
 
 
 def test_control_bookkeeping():

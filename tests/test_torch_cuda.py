@@ -188,3 +188,49 @@ def test_slice_kernel_route_matches_plain_route(cuda):
     assert float((j1_k - j1_p).abs().max()) <= 1e-5
     assert float((g_k - g_p).abs().max()) <= 1e-5
     assert float((grad_k - grad_p).norm() / grad_p.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("B", [1, 1000, 5500])
+def test_lhs_kernel_at_hoisted_batch(cuda, B):
+    """The plain route's hoisted build: one launch over every step's
+    stage, B = S·T (5500 = CNOT3's published horizon): about 21 waves of
+    264 blocks, 720 MB read and 360 MB written in one call."""
+    A, _ = _inputs(20, B, 2, 128, 8, cuda, scale=1.0)
+    dt = torch.tensor(0.1, dtype=torch.float32, device=cuda)
+    out = qt.ops.hermite_lhs_matrix_kernel_call(A, dt, 2)
+    torch.cuda.synchronize()
+    assert _rel_err(out, sk.lhs_matrix_plain(A, dt, 2)) <= REL_TOL
+    # the last matrix alone: no cross-talk between blocks at the far end
+    last = qt.ops.hermite_lhs_matrix_kernel_call(A[-1:].contiguous(), dt, 2)
+    assert torch.equal(out[-1:], last)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_rhs_kernel_at_single_start_batch(cuda, B):
+    """optimize_gate's explicit half: one control vector (B = 1)."""
+    A, W = _inputs(21, B, 2, 128, 8, cuda, scale=1.0)
+    dt = torch.tensor(0.1, dtype=torch.float32, device=cuda)
+    out = qt.ops.hermite_rhs_kernel_call(A, W, dt, 2)
+    torch.cuda.synchronize()
+    assert _rel_err(out, sk.rhs_plain(A, W, dt, 2)) <= REL_TOL
+
+
+def test_plain_route_on_the_card_matches_cpu_f64(cuda):
+    """CNOT3, 8 steps, 2 carrier-controlled scenarios: the f32 kernel
+    route of objective_and_gradient on the card against the float64 LU
+    route on the CPU, with one hoisted LHS launch and one RHS launch per
+    step."""
+    freqs = qt.cnot3_carrier_frequencies()
+    ctrls = [qt.CarrierControl(qt.BSpline2Control(10, 4.4), f) for f in freqs]
+    pcof = np.random.default_rng(0).uniform(-0.002, 0.002, (2, 180))
+    tgt = qt.cnot3_target(tf=4.4)
+    prob = qt.cnot3_problem(tf=4.4, nsteps=8, solver="schulz",
+                            dtype="float32", schulz_warm_budget=0,
+                            device=cuda)
+    sk.reset_launch_counts()
+    (j1, g, _), grad = qt.objective_and_gradient(prob, ctrls, pcof, tgt, 4)
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 1, "hermite_rhs": 8}
+    ref = qt.cnot3_problem(tf=4.4, nsteps=8, device="cpu")
+    (rj1, rg, _), rgrad = qt.objective_and_gradient(ref, ctrls, pcof, tgt, 4)
+    assert float(((j1 + g).cpu() - (rj1 + rg)).abs().max()) <= 1e-4
+    assert float((grad.cpu() - rgrad).norm() / rgrad.norm()) <= 1e-3

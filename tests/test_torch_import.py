@@ -24,6 +24,11 @@ def test_import_pulls_in_no_jax_and_pins_precision():
     proc = _run(
         "import json, sys, torch\n"
         "import qgd_tpu_torch, qgd_tpu_torch.models, qgd_tpu_torch.ops\n"
+        "import qgd_tpu_torch.forward, qgd_tpu_torch.adjoint\n"
+        "import qgd_tpu_torch.objective, qgd_tpu_torch.segmented\n"
+        "import qgd_tpu_torch.optimize, qgd_tpu_torch.checkpoint\n"
+        "import qgd_tpu_torch.controls.analytic\n"
+        "import qgd_tpu_torch.controls.carrier\n"
         "print(json.dumps({\n"
         "  'jax': sorted(m for m in sys.modules\n"
         "               if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"

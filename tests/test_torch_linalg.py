@@ -1,5 +1,6 @@
-"""qgd_tpu_torch Newton-Schulz inverses and refinement stage solves
-against qgd_tpu.ops.linalg, float64."""
+"""qgd_tpu_torch Newton-Schulz inverses, refinement stage solves and LU
+stage solves against qgd_tpu.ops.linalg, float64 unless a case says
+otherwise."""
 
 import numpy as np
 import pytest
@@ -87,3 +88,29 @@ def test_inverse_stage_solve_matches_jax(transpose, sweeps):
 
 def test_f32_sweep_default_is_three():
     assert tl.REFINE_SWEEPS_F32 == 3
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(np.float64, 1e-12, 1e-13),
+                                             (np.float32, 2e-5, 2e-5)])
+def test_lu_stage_solves_match_jax(dtype, rtol, atol):
+    """Batched factorization + solve, the direct solve and its transpose,
+    with factors and right-hand side in one dtype (the f32-factor, f64
+    right-hand-side refinement of the JAX package is not ported). The
+    float32 tolerance is a few ulps times the stages' condition number."""
+    M = _stage_like(4, 3, 12).astype(dtype)
+    B = np.random.default_rng(5).standard_normal((3, 12, 4)).astype(dtype)
+    lu, piv = tl.factorize_stages(torch.tensor(M))
+    ours = tl.solve_factored(lu, piv, torch.tensor(B))
+    jlu, jpiv = jl.factorize_stages(jnp.asarray(M))
+    ref = jax.vmap(jl.solve_factored)(jnp.asarray(M), jlu, jpiv,
+                                      jnp.asarray(B))
+    assert ours.dtype == torch.tensor(B).dtype
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(M @ ours.numpy(), B, atol=atol)
+    for ours, ref in ((tl.stage_solve, jl.stage_solve),
+                      (tl.stage_solve_transposed, jl.stage_solve_transposed)):
+        np.testing.assert_allclose(
+            ours(torch.tensor(M), torch.tensor(B)).numpy(),
+            np.asarray(jax.vmap(ref)(jnp.asarray(M), jnp.asarray(B))),
+            rtol=rtol, atol=atol)

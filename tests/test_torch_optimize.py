@@ -1,0 +1,126 @@
+"""The port's optimizer drivers against the JAX package on the CPU: the
+quick start's ``optimize_gate`` (Rabi SWAP, GRAPE, order 8) and the
+batched ``optimize_gate_multistart`` on both routes.
+
+Tolerances: recorded objectives relative <= 1e-9, with an absolute floor
+of 1e-14: the infidelity is ``1 - |tr|^2/N^2`` formed from ``|tr|^2/N^2``
+near 1, whose float64 resolution is ~1e-16, and the two packages'
+propagations differ by ~1e-15 relative, so an objective of 5e-7 carries
+~4e-15 of roundoff (the quick start's sixth evaluation). Multistart
+objectives relative <= 1e-8 over 3 iterations: the line search compares
+those values against thresholds, so a difference would show as a jump,
+not a drift.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+import qgd_tpu  # noqa: E402
+import qgd_tpu_torch as qt  # noqa: E402
+
+torch.set_num_threads(1)
+
+SWAP = np.array([[0.0, 1.0], [1.0, 0.0]], dtype=np.complex128)
+
+
+def _rabi(pkg, nsteps=40, **over):
+    if pkg is qgd_tpu:
+        prob = dataclasses.replace(pkg.construct_rabi_prob(nsteps=nsteps),
+                                   **over)
+    else:
+        prob = pkg.construct_rabi_prob(nsteps=nsteps, device="cpu", **over)
+    return prob, pkg.GRAPEControl(1, float(prob.tf))
+
+
+def test_optimize_gate_quick_start_matches_jax():
+    """The README quick start: the recorded objectives of the first (up to)
+    10 evaluations agree with JAX's, and the port alone runs on to the SWAP
+    optimum |amp| = 0.5."""
+    kw = dict(order=8, ridge_penalty_strength=0.0, print_level=0)
+    jprob, jc = _rabi(qgd_tpu)
+    tprob, tc = _rabi(qt)
+    ref = qgd_tpu.optimize_gate(jprob, jc, jnp.array([0.4, 0.1]), SWAP,
+                                maxIter=10, **kw)
+    hist = qt.optimize_gate(tprob, tc, np.array([0.4, 0.1]), SWAP,
+                            maxIter=60, **kw)
+    n = min(10, len(ref.obj_value))
+    assert len(hist.obj_value) >= n >= 5
+    np.testing.assert_allclose(hist.obj_value[:n], ref.obj_value[:n],
+                               rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(np.asarray(hist.pcof[:n]),
+                               np.asarray(ref.pcof[:n]), rtol=0, atol=1e-12)
+    assert hist.obj_value[hist.best_index] < 1e-7
+    assert abs(np.hypot(*hist.best_pcof) - 0.5) < 5e-4
+    assert hist.iter_count == list(range(len(hist.obj_value)))
+    assert "min objective" in hist.summary()
+
+
+@pytest.mark.parametrize("route,solver", [("plain", "lu"),
+                                          ("segmented", "schulz")])
+def test_multistart_matches_jax(route, solver):
+    """S = 3 starts, 3 iterations, L-BFGS with backtracking: the port's
+    batched torch version against optax's, vmapped. Order 4, as order 8
+    adds only JAX compile time here."""
+    jprob, jc = _rabi(qgd_tpu, solver=solver)
+    tprob, tc = _rabi(qt, solver=solver)
+    starts = np.array([[0.4, 0.1], [0.55, -0.05], [0.35, 0.2]])
+    kw = dict(order=4, maxIter=3, ridge_penalty_strength=0.0, print_level=0,
+              gradient_route=route,
+              n_segments=40 if route == "segmented" else 0)
+    jp, jobjs = qgd_tpu.optimize_gate_multistart(jprob, jc,
+                                                 jnp.asarray(starts), SWAP,
+                                                 **kw)
+    tp, tobjs = qt.optimize_gate_multistart(tprob, tc, starts, SWAP, **kw)
+    assert tobjs.shape == jobjs.shape == (3, 3)
+    np.testing.assert_allclose(tobjs, jobjs, rtol=1e-8)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0,
+                               atol=1e-10)
+    assert np.all(tobjs[-1] < tobjs[0])
+
+
+def test_segmented_route_of_optimize_gate():
+    """n_segments = nsteps takes the segment-length-1 route: the same
+    optimization as the plain route (float64, schulz), and a segment count
+    the port lacks raises."""
+    tprob, tc = _rabi(qt, solver="schulz")
+    kw = dict(order=8, maxIter=4, ridge_penalty_strength=1e-2,
+              print_level=0)
+    plain = qt.optimize_gate(tprob, tc, np.array([0.4, 0.1]), SWAP,
+                             n_segments=0, **kw)
+    seg = qt.optimize_gate(tprob, tc, np.array([0.4, 0.1]), SWAP,
+                           n_segments=40, **kw)
+    np.testing.assert_allclose(seg.obj_value, plain.obj_value, rtol=1e-10)
+    with pytest.raises(NotImplementedError, match="segment length 1"):
+        qt.optimize_gate(tprob, tc, np.array([0.4, 0.1]), SWAP,
+                         n_segments=4, **kw)
+
+
+def test_unported_options_raise():
+    tprob, tc = _rabi(qt)
+    p0 = np.array([0.4, 0.1])
+    for kw, what in ((dict(method="lbfgs"), "ROADMAP"),
+                     (dict(gradient_route="prefix"), "ROADMAP"),
+                     (dict(max_dispatch_steps=10), "not ported")):
+        with pytest.raises(NotImplementedError, match=what):
+            qt.optimize_gate(tprob, tc, p0, SWAP, print_level=0, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        qt.optimize_gate_multistart(tprob, tc, p0[None], SWAP,
+                                    gradient_route="prefix", print_level=0)
+    with pytest.raises(ValueError):
+        qt.optimize_gate(tprob, tc, p0, SWAP, method="newton", print_level=0)
+
+
+def test_gradient_descent_decreases_objective():
+    tprob, tc = _rabi(qt, nsteps=20)
+    p0 = torch.tensor([0.42, 0.03], dtype=torch.float64)
+    before = float(qt.infidelity_plus_guard(tprob, tc, p0, SWAP, order=4))
+    p1 = qt.gradient_descent(tprob, tc, p0, SWAP, order=4,
+                             learning_rate=0.05, max_iter=20)
+    after = float(qt.infidelity_plus_guard(tprob, tc, p1, SWAP, order=4))
+    assert after < before
