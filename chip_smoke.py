@@ -22,6 +22,19 @@ at the start point, and a save + resume of the run. The multistart phase:
 ``optimize_gate_multistart`` on the segmented route, 256 carrier starts,
 CNOT3 at nsteps = 1000, 2 iterations.
 
+The segmented phase: the main path's call at segment length L = 40
+(``choose_segments(1000)``: re-forward per segment, the LHS kernel at
+B = 256 x 40) against L = 1, with seconds per call and peak memory of
+both, then CNOT3 at nsteps = 5500 with 256 scenarios on the automatic
+segment rule. The prefix phase: ``optimize_gate(gradient_route=
+"prefix")`` on the optimize phase's setup (the LHS kernel at B = 275 per
+segment, both signs), its gradient at the start point held against the
+plain route's and float64. The L-BFGS phase: ``optimize_gate(method=
+"lbfgs")`` (on-device L-BFGS, zoom line search, projected bounds) on the
+same setup, prefix route. The forced-gradient phase, in float64 on the
+card: the general-L segmented gradient of Rabi at nsteps = 20480 held
+against forward-mode AD (``eval_grad_forced``).
+
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
@@ -66,6 +79,22 @@ TPU_ERA_GUARD = 1e-7
 # multistart phase (the main path's horizon and scenario count).
 OPT_NSTEPS, OPT_ITERS, OPT_BOUND = 5500, 3, 0.02
 MS_NSTEPS, MS_STARTS, MS_ITERS = 1000, 256, 2
+# L-BFGS phase iterations; the forced-gradient gate's horizon, and its
+# tolerances (tests/test_segmented.py's VERDICT gate: adjoint vs forced
+# rtol 1e-13, atol 1e-14 * max(1, |g|max)).
+LBFGS_ITERS = 3
+FORCED_NSTEPS = 20480
+# The prefix route's segment length at OPT_NSTEPS: choose_segments(5500,
+# target_len=256) gives 20 segments.
+PREFIX_L = 275
+# f64 prefix route vs f64 plain LU route: the same maps, exact inverses,
+# multiplied in another association (1e-11 at 24 steps on the CPU); 1e-9
+# leaves room for roundoff growth over 5500 steps, a wrong term shows at
+# 1e-6 or more. The f32 prefix route is held against f64 at F64_*_TOL,
+# as the JAX package holds it (tests/test_prefix.py): its f32 products
+# drift from f64 several times as far as the serial route's solves.
+PREFIX_F64_TOL = 1e-9
+FORCED_RTOL, FORCED_ATOL = 1e-13, 1e-14
 
 
 def phase(name, msg):
@@ -271,13 +300,43 @@ def kernel_phase(prob, controls, pcof, dev, smi):
                 check(e <= 1e-4, f"{name} backward vs plain VJP: {e:.2e}")
     phase("kernels", "autograd backward on CUDA vs plain VJP <= 1e-4")
 
-    rows = _kernel_rows(*_main_path_stacks(prob, controls, pcof, dev), dev,
-                        smi)
+    A, W, dt = _main_path_stacks(prob, controls, pcof, dev)
+    rows = _kernel_rows(A, W, dt, dev, smi, "main")
+    del A, W
+    # the segmented phase's shape: one segment's implicit-stage build at
+    # L = 40 for the 256 scenarios (B = 10240)
+    A, dt = _segment_stacks(prob, controls, pcof, dev)
+    rows += _kernel_rows(A, None, dt, dev, smi, "segmented", "B=10240")
+    del A
     # the optimize phase's shapes: the hoisted LHS build over all 5500
-    # steps (B = 5500) and the explicit half of one control vector (B = 1)
+    # steps (B = 5500) and the explicit half of one control vector (B = 1);
+    # the prefix phase's: one segment's R (sign +1) and M (sign -1) at
+    # L = 275 (B = 275)
     A, W, dt = _optimize_stacks(dev)
-    rows += _kernel_rows(A, W[:1], dt, dev, smi, suffixed=True)
+    rows += _kernel_rows(A, W[:1], dt, dev, smi, "optimize", "B=5500")
+    rows += _kernel_rows(A[:PREFIX_L].contiguous(), None, dt, dev, smi,
+                         "prefix", "B=275,sign=-1")
+    rows += _kernel_rows(A[:PREFIX_L].contiguous(), None, dt, dev, smi,
+                         "prefix", "B=275,sign=+1", sign=1.0)
     return rows
+
+
+def _segment_stacks(prob, controls, pcof, dev):
+    """Generator stacks (S*L, m, 2N, 2N) of the first segment's right
+    endpoints at L = 40, as the segmented route hands them to the LHS
+    kernel (S = 256 scenarios, f32)."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.forward import _time_grid
+
+    m = ORDER // 2
+    L = NSTEPS // qt.choose_segments(NSTEPS)
+    wprob = qt.working_problem(prob)
+    _, ts = _time_grid(prob)
+    P, Q = qt.control_tables(controls, pcof, ts[1:L + 1], m)
+    A = qt.assemble_generator_stack(wprob, P.float(), Q.float(), m)
+    dt = torch.tensor(prob.tf / prob.nsteps, dtype=torch.float32,
+                      device=dev)
+    return A.reshape((-1,) + A.shape[2:]).contiguous(), dt
 
 
 def _optimize_stacks(dev):
@@ -305,31 +364,36 @@ def _optimize_stacks(dev):
     return A, W, dt
 
 
-def _kernel_rows(A, W, dt, dev, smi, suffixed=False):
-    """One JSON row per kernel at these inputs: LHS on ``A`` (B, m, n, n),
-    RHS on ``A[:B_rhs]`` and ``W`` (B_rhs, n, b). ``suffixed`` names the
-    rows with their batch (the rows of a second shape)."""
+def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0):
+    """One JSON row per kernel at these inputs: LHS on ``A`` (B, m, n, n)
+    with step sign ``sign`` (-1: the implicit-stage matrix LHS(t), +1: the
+    explicit-side R(t)), RHS on ``A[:B_rhs]`` and ``W`` (B_rhs, n, b)
+    unless ``W`` is None. ``driven_by`` names the phase whose launches the
+    rows report; ``tag`` is appended to the names of a second shape's
+    rows."""
     import qgd_tpu_torch as qt
     from qgd_tpu_torch.ops import stage_kernels as sk
 
     m = ORDER // 2
     n = A.shape[-1]
-    b = W.shape[-1]
-    Ar = A[:W.shape[0]].contiguous()
     f32 = 4
-    B_l, B_r = A.shape[0], Ar.shape[0]
+    B_l = A.shape[0]
     # what each function must do: the LHS one n^3 product per matrix at
     # m = 2, the RHS m(m+1)/2 products of n^2 b; each input read once, each
     # output written once
     work = {"hermite_lhs_matrix": (2 * n ** 3 * B_l * (m - 1),
-                                   (A.numel() + B_l * n * n) * f32),
-            "hermite_rhs": (m * (m + 1) // 2 * 2 * n * n * b * B_r,
-                            (Ar.numel() + 2 * W.numel()) * f32)}
+                                   (A.numel() + B_l * n * n) * f32)}
+    if W is not None:
+        b = W.shape[-1]
+        Ar = A[:W.shape[0]].contiguous()
+        B_r = Ar.shape[0]
+        work["hermite_rhs"] = (m * (m + 1) // 2 * 2 * n * n * b * B_r,
+                               (Ar.numel() + 2 * W.numel()) * f32)
     # the library yardstick of the LHS at m = 2: one cuBLAS batched FP32
     # product, C + (c2/2) At0 At0 with C = c0 I + c1 At0 + (c2/2) At1 on
     # the scaled stack, prepared outside the timed graph
     c = qt.hermite_coefficients(m)
-    scales = sk._stack_scales(dt, m, -1.0, dev)
+    scales = sk._stack_scales(dt, m, sign, dev)
     a0s, a1s = A[:, 0] * scales[0], A[:, 1] * scales[1]
     C = (c[0] * torch.eye(n, device=dev) + c[1] * a0s + (c[2] / 2) * a1s)
     del a1s
@@ -338,15 +402,16 @@ def _kernel_rows(A, W, dt, dev, smi, suffixed=False):
                             device=dev)
     flush = flush_buf.zero_
     rows = []
-    for name, src, replaces, kern, plain, lib, B in (
-            ("hermite_lhs_matrix", "qgd_tpu_torch/csrc/lhs.cu",
-             "qgd_tpu/ops/pallas_step.py:184",
-             lambda: sk.hermite_lhs_matrix_kernel_call(A, dt, m),
-             lambda: sk.lhs_matrix_plain(A, dt, m), library, B_l),
-            ("hermite_rhs", "qgd_tpu_torch/csrc/rhs.cu",
-             "qgd_tpu/ops/pallas_step.py:91",
-             lambda: sk.hermite_rhs_kernel_call(Ar, W, dt, m),
-             lambda: sk.rhs_plain(Ar, W, dt, m), None, B_r)):
+    cases = [("hermite_lhs_matrix", "qgd_tpu_torch/csrc/lhs.cu",
+              "qgd_tpu/ops/pallas_step.py:184",
+              lambda: sk.hermite_lhs_matrix_kernel_call(A, dt, m, sign),
+              lambda: sk.lhs_matrix_plain(A, dt, m, sign), library, B_l)]
+    if W is not None:
+        cases.append(("hermite_rhs", "qgd_tpu_torch/csrc/rhs.cu",
+                      "qgd_tpu/ops/pallas_step.py:91",
+                      lambda: sk.hermite_rhs_kernel_call(Ar, W, dt, m),
+                      lambda: sk.rhs_plain(Ar, W, dt, m), None, B_r))
+    for name, src, replaces, kern, plain, lib, B in cases:
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
@@ -356,7 +421,7 @@ def _kernel_rows(A, W, dt, dev, smi, suffixed=False):
               f"{name} at B={B}: {rel:.2e} relative")
         lib_note = ""
         if lib is not None:
-            lib_rel = _rel(lib(), sk.lhs_matrix_plain(A, dt, m))
+            lib_rel = _rel(lib(), sk.lhs_matrix_plain(A, dt, m, sign))
             check(lib_rel <= KERNEL_REL_TOL,
                   f"{name} library yardstick vs plain: {lib_rel:.2e}")
         calls = 20 if B * n * n * f32 < 2 ** 28 else 3
@@ -373,11 +438,13 @@ def _kernel_rows(A, W, dt, dev, smi, suffixed=False):
         eager = [_eager_ms(f) for f in (plain, kern)]
         host_us = _host_us(kern, calls=200 if calls == 20 else 20)
         kernels = _device_kernels(kern)
-        row = {"name": f"{name}[B={B}]" if suffixed else name,
+        row_tag = (f"B={B}" if name == "hermite_rhs" else tag)
+        row = {"name": f"{name}[{row_tag}]" if tag else name,
                "route": "cuda", "source": src,
-               "replaces": replaces, "launches": 0,
+               "replaces": replaces, "launches": 0, "phase": driven_by,
                "shape": {"B": B, "n": n, "m": m,
-                         **({"b": b} if name == "hermite_rhs" else {})},
+                         **({"b": b} if name == "hermite_rhs"
+                            else {"sign": int(sign)})},
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_resource": resource, "share": bound_ms / ms,
@@ -395,7 +462,9 @@ def _kernel_rows(A, W, dt, dev, smi, suffixed=False):
         flops, nbytes = work[name]
         warm = (" (share > 1: the operands came from L2)"
                 if bound_ms / ms > 1 else "")
-        phase("kernels", f"{name} at B={B} n={n} m={m} b={b}: max|kernel-"
+        what = (f"b={b}" if name == "hermite_rhs"
+                else f"sign={int(sign):+d}")
+        phase("kernels", f"{name} at B={B} n={n} m={m} {what}: max|kernel-"
                          f"plain| {err:.3e} ({rel:.2e} rel); device time per "
                          f"call (CUDA graph of {calls} calls, median of 10 "
                          f"replays, CUDA events; plain, kernel, kernel, plain "
@@ -588,8 +657,8 @@ def optimize_phase(rows, dev, smi):
         check(counts == expected, f"optimize launch counts {counts} != "
                                   f"{expected}")
         for row in rows:
-            kname = row["name"].split("[")[0]
-            if row["name"] != kname:
+            if row["phase"] == "optimize":
+                kname = row["name"].split("[")[0]
                 row["launches"] = counts[kname]
                 row["launches_per_evaluation"] = counts[kname] // n_eval
         secs = np.diff([0.0] + hist.wall_time)
@@ -616,6 +685,278 @@ def optimize_phase(rows, dev, smi):
                           f"evaluations, iterations {n_eval}.."
                           f"{resumed.iter_count[-1]}, last objective "
                           f"{resumed.obj_value[-1]:.9f}; {smi}")
+    return dict(obj=obj, grad=grad, obj64=float(fj1 + fg + fr), grad64=fgrad,
+                secs=secs)
+
+
+def _scenario_deltas(obj, grad, ref_obj, ref_grad):
+    """``(max |d obj|, max |d grad|/|grad|)`` over scenarios."""
+    return (float((obj - ref_obj).abs().max()),
+            float(((grad - ref_grad).norm(dim=-1)
+                   / ref_grad.norm(dim=-1)).max()))
+
+
+def segmented_phase(prob, controls, pcof, tgt, dev, rows, smi):
+    """The main path at segment length L = 40 against L = 1 (seconds per
+    call and peak memory of both), then CNOT3 at nsteps = OPT_NSTEPS with
+    the scenarios of the main path on the automatic segment rule."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.ops import stage_kernels as sk
+    from qgd_tpu_torch.segmented import _auto_segments
+
+    n_seg = qt.choose_segments(NSTEPS)
+    L = NSTEPS // n_seg
+    runs = {}
+    for ns in (NSTEPS, n_seg):
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            (j1, g, _), grad = qt.segmented_objective_and_gradient(
+                prob, controls, pcof, tgt, ORDER, n_segments=ns)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        runs[ns] = (j1 + g, grad, secs, torch.cuda.max_memory_allocated(),
+                    sk.launch_counts())
+    obj, grad, secs, peak, counts = runs[n_seg]
+    obj1, grad1, secs1, peak1, _ = runs[NSTEPS]
+    # per call: forward and re-forward each launch the LHS kernel once per
+    # segment (at S*L) and the RHS kernel once per step (at S)
+    expected = {"hermite_lhs_matrix": 2 * n_seg, "hermite_rhs": 2 * NSTEPS}
+    check(counts == expected, f"segmented launch counts {counts} != "
+                              f"{expected}")
+    for row in rows:
+        if row["phase"] == "segmented":
+            row["launches"] = counts["hermite_lhs_matrix"]
+    check(bool(torch.isfinite(obj).all() and torch.isfinite(grad).all()),
+          "segmented: finite objective and gradient")
+    d_obj, d_grad = _scenario_deltas(obj, grad, obj1, grad1)
+    phase("segmented", f"CNOT3 nsteps={NSTEPS} S={SCENARIOS}: L={L} "
+                       f"(n_segments={n_seg}) vs L=1: |d obj| {d_obj:.3e} "
+                       f"(<= {ROUTE_OBJ_TOL:g}), |d grad|/|grad| "
+                       f"{d_grad:.3e} (<= {ROUTE_GRAD_TOL:g}); seconds per "
+                       f"call L={L} {[round(t, 3) for t in secs]}, L=1 "
+                       f"{[round(t, 3) for t in secs1]}; peak memory L={L} "
+                       f"{peak / 1e9:.3f} GB, L=1 {peak1 / 1e9:.3f} GB; "
+                       f"launches per call {counts}; {smi}")
+    check(d_obj <= ROUTE_OBJ_TOL and d_grad <= ROUTE_GRAD_TOL,
+          "segmented: L=40 vs L=1")
+
+    # the published horizon for the main path's scenarios: L = 1 would
+    # hold (T+1) states and (T+2) multipliers of 1 MiB each
+    prob_l = qt.cnot3_problem(nsteps=OPT_NSTEPS, solver="schulz",
+                              dtype="float32", schulz_iters=48,
+                              schulz_warm_budget=0, device=dev)
+    controls_l = tuple(qt.BSpline2Control(10, prob_l.tf) for _ in range(3))
+    n_auto = _auto_segments(prob_l, OPT_NSTEPS, SCENARIOS)
+    check(n_auto < OPT_NSTEPS, f"auto rule at {OPT_NSTEPS} steps: L = 1")
+    per_state = SCENARIOS * 128 * 8 * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    (j1, g, _), grad = qt.segmented_objective_and_gradient(
+        prob_l, controls_l, pcof, tgt, ORDER)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"hermite_lhs_matrix": 2 * n_auto,
+                "hermite_rhs": 2 * OPT_NSTEPS}
+    check(counts == expected, f"long-horizon launch counts {counts} != "
+                              f"{expected}")
+    check(bool(torch.isfinite(j1 + g).all() and torch.isfinite(grad).all()),
+          "long horizon: finite objective and gradient")
+    k = 4
+    (rj1, rg, _), rgrad = qt.segmented_objective_and_gradient(
+        prob_l, controls_l, pcof[:k], tgt, ORDER, n_segments=OPT_NSTEPS)
+    d_obj, d_grad = _scenario_deltas((j1 + g)[:k], grad[:k], rj1 + rg, rgrad)
+    res = qt.stage_residuals(prob_l, controls_l, pcof[:1], ORDER, sample=8)
+    phase("segmented", f"CNOT3 nsteps={OPT_NSTEPS} S={SCENARIOS}, automatic "
+                       f"rule: n_segments={n_auto} (L={OPT_NSTEPS // n_auto})"
+                       f", {sec:.3f} s, peak memory {peak / 1e9:.3f} GB "
+                       f"(L=1 would store the trajectory "
+                       f"{(OPT_NSTEPS + 1) * per_state / 1e9:.3f} GB and the "
+                       f"multipliers {(OPT_NSTEPS + 2) * per_state / 1e9:.3f}"
+                       f" GB); launches per call {counts}; scenarios 0-3 vs "
+                       f"the L=1 route: |d obj| {d_obj:.3e}, |d grad|/|grad| "
+                       f"{d_grad:.3e}; stage residual, scenario 0, 8 probes: "
+                       f"max {res['max']:.3e} mean {res['mean']:.3e}; {smi}")
+    check(d_obj <= ROUTE_OBJ_TOL and d_grad <= ROUTE_GRAD_TOL,
+          "long horizon: automatic L vs L=1")
+    check(res["max"] <= RESIDUAL_LIMIT, "long horizon: stage residual")
+
+
+def prefix_phase(rows, start, dev, smi):
+    """optimize_gate(gradient_route="prefix") on the optimize phase's setup:
+    the gradient at the start point against the plain route's and float64,
+    launches per evaluation, OPT_ITERS L-BFGS-B iterations."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.ops import stage_kernels as sk
+
+    prob, controls, pcof0, tgt = _optimize_setup(dev)
+    kw = dict(ridge_penalty_strength=1e-2)
+    n_seg = qt.choose_segments(OPT_NSTEPS,
+                               target_len=max(256, int(OPT_NSTEPS ** 0.5)))
+    check(OPT_NSTEPS // n_seg == PREFIX_L, f"prefix segment length "
+                                           f"{OPT_NSTEPS // n_seg}")
+    # per evaluation: R(t_left) (sign +1) and M(t_right) (sign -1) of every
+    # segment in the forward, M(t_right) again in the backward
+    per_eval = {"hermite_lhs_matrix": 3 * n_seg, "hermite_rhs": 0}
+    per_eval_sign = {"-1": 2 * n_seg, "+1": n_seg}
+    secs = []
+    for _ in range(2):
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        (j1, g, r), grad = qt.prefix_objective_and_gradient(
+            prob, controls, pcof0, tgt, ORDER, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = sk.launch_counts()
+        by_sign = sk.lhs_launches_by_sign()
+        check(counts == per_eval and by_sign == per_eval_sign,
+              f"prefix launch counts {counts}, LHS by sign {by_sign} != "
+              f"{per_eval}, {per_eval_sign}")
+    obj = float(j1 + g + r)
+    d_obj, d_grad = abs(obj - start["obj"]), _grad_rel(grad, start["grad"])
+    d_obj64 = abs(obj - start["obj64"])
+    d_grad64 = _grad_rel(grad, start["grad64"])
+    prob64 = qt.cnot3_problem(nsteps=OPT_NSTEPS, device=dev)  # f64, "lu"
+    (fj1, fg, fr), fgrad = qt.prefix_objective_and_gradient(
+        prob64, controls, pcof0, tgt, ORDER, **kw)
+    e_obj64 = abs(float(fj1 + fg + fr) - start["obj64"])
+    e_grad64 = _grad_rel(fgrad, start["grad64"])
+    phase("prefix", f"CNOT3 nsteps={OPT_NSTEPS}, 180 carrier parameters, "
+                    f"{n_seg} segments of {PREFIX_L}, start point: f64 "
+                    f"prefix vs f64 lu route |d obj| {e_obj64:.3e}, |d "
+                    f"grad|/|grad| {e_grad64:.3e} (<= {PREFIX_F64_TOL:g}); "
+                    f"f32 kernel route: objective {obj:.9f}, vs the f64 lu "
+                    f"route {d_obj64:.3e} (<= {F64_OBJ_TOL:g}), "
+                    f"{d_grad64:.3e} (<= {F64_GRAD_TOL:g}), vs the plain "
+                    f"f32 kernel route {d_obj:.3e}, {d_grad:.3e} (reported; "
+                    f"the plain route vs f64: "
+                    f"{abs(start['obj'] - start['obj64']):.3e}, "
+                    f"{_grad_rel(start['grad'], start['grad64']):.3e}); "
+                    f"seconds per evaluation {[round(t, 3) for t in secs]} "
+                    f"(plain route median "
+                    f"{float(np.median(start['secs'])):.3f}); launches per "
+                    f"evaluation {counts}, LHS by sign {by_sign}; {smi}")
+    check(e_obj64 <= PREFIX_F64_TOL and e_grad64 <= PREFIX_F64_TOL,
+          "f64 prefix vs f64 lu route")
+    check(d_obj64 <= F64_OBJ_TOL and d_grad64 <= F64_GRAD_TOL,
+          "f32 prefix vs f64 lu route")
+
+    sk.reset_launch_counts()
+    hist = qt.optimize_gate(prob, controls, pcof0, tgt, order=ORDER,
+                            pcof_L=-OPT_BOUND, pcof_U=OPT_BOUND,
+                            maxIter=OPT_ITERS, gradient_route="prefix",
+                            print_level=0, **kw)
+    torch.cuda.synchronize()
+    counts = sk.launch_counts()
+    by_sign = sk.lhs_launches_by_sign()
+    n_eval = len(hist.obj_value)
+    expected = {k: v * n_eval for k, v in per_eval.items()}
+    expected_sign = {k: v * n_eval for k, v in per_eval_sign.items()}
+    check(counts == expected and by_sign == expected_sign,
+          f"prefix optimize launch counts {counts}, LHS by sign {by_sign} "
+          f"!= {expected}, {expected_sign}")
+    for row in rows:
+        if row["phase"] == "prefix":
+            row["launches"] = by_sign[f"{row['shape']['sign']:+d}"]
+            row["launches_per_evaluation"] = row["launches"] // n_eval
+    ev_secs = np.diff([0.0] + hist.wall_time)
+    phase("prefix", f"optimize_gate(gradient_route='prefix'), L-BFGS-B "
+                    f"maxIter={OPT_ITERS}, bounds +-{OPT_BOUND}: {n_eval} "
+                    f"evaluations, objective per evaluation "
+                    f"{[round(v, 9) for v in hist.obj_value]}, seconds per "
+                    f"evaluation {[round(float(t), 3) for t in ev_secs]} "
+                    f"(median {float(np.median(ev_secs)):.3f} s); launches "
+                    f"{counts}, LHS by sign {by_sign}; {smi}")
+    check(n_eval > 1 and min(hist.obj_value[1:]) < hist.obj_value[0],
+          "prefix: a later objective below the first")
+    check(all(np.isfinite(hist.obj_value)), "prefix: finite objectives")
+
+
+def lbfgs_phase(dev, smi):
+    """optimize_gate(method="lbfgs"): L-BFGS on the device with the zoom
+    line search and projected bounds, LBFGS_ITERS iterations on the
+    optimize phase's setup, prefix route."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.ops import stage_kernels as sk
+
+    prob, controls, pcof0, tgt = _optimize_setup(dev)
+    n_seg = OPT_NSTEPS // PREFIX_L
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = qt.optimize_gate(prob, controls, pcof0, tgt, order=ORDER,
+                            pcof_L=-OPT_BOUND, pcof_U=OPT_BOUND,
+                            maxIter=LBFGS_ITERS, method="lbfgs",
+                            gradient_route="prefix", print_level=0,
+                            ridge_penalty_strength=1e-2)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    calls = sk.launch_counts()["hermite_lhs_matrix"] / (3 * n_seg)
+    worst = float(np.abs(np.asarray(hist.pcof)).max())
+    phase("lbfgs", f"optimize_gate(method='lbfgs', gradient_route='prefix'),"
+                   f" {LBFGS_ITERS} iterations, bounds +-{OPT_BOUND}: "
+                   f"objective per iteration "
+                   f"{[round(v, 9) for v in hist.obj_value]}, {sec:.3f} s, "
+                   f"{calls:g} objective+gradient calls (iterations and "
+                   f"line-search probes), max |pcof| {worst:.6f}; {smi}")
+    check(len(hist.obj_value) == LBFGS_ITERS, "lbfgs: one record per "
+                                              "iteration")
+    check(all(np.isfinite(hist.obj_value)), "lbfgs: finite objectives")
+    check(min(hist.obj_value[1:]) < hist.obj_value[0],
+          "lbfgs: a later objective below the first")
+    check(worst <= OPT_BOUND, "lbfgs: the bounds hold")
+
+
+def forced_phase(dev, smi):
+    """The VERDICT gate in float64 on the card: the general-L segmented
+    gradient of Rabi at nsteps = FORCED_NSTEPS (automatic segments) against
+    forward-mode AD; and forward mode refused at the f32 kernels."""
+    import qgd_tpu_torch as qt
+
+    prob = qt.construct_rabi_prob(nsteps=FORCED_NSTEPS, device=dev)
+    controls = (qt.BSpline2Control(4, prob.tf),)
+    rng = np.random.default_rng(3)
+    pcof = rng.standard_normal(8) * 0.3
+    tgt = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+    n_seg = qt.choose_segments(FORCED_NSTEPS)
+    t0 = time.perf_counter()
+    (_, _, _), g_seg = qt.segmented_objective_and_gradient(prob, controls,
+                                                           pcof, tgt, ORDER)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g_for = qt.eval_grad_forced(prob, controls, pcof, tgt, ORDER)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    scale = max(1.0, float(g_for.abs().max()))
+    excess = float(((g_seg - g_for).abs()
+                    - (FORCED_ATOL * scale + FORCED_RTOL * g_for.abs())).max())
+    rel = float((g_seg - g_for).abs().max()) / scale
+    phase("forced", f"Rabi nsteps={FORCED_NSTEPS}, BSpline2Control(4), f64 "
+                    f"on the card: segmented gradient ({n_seg} segments of "
+                    f"{FORCED_NSTEPS // n_seg}, {t1 - t0:.3f} s) vs "
+                    f"eval_grad_forced ({t2 - t1:.3f} s): max |d g| / "
+                    f"max(1, |g|max) {rel:.3e} (gate rtol {FORCED_RTOL:g}, "
+                    f"atol {FORCED_ATOL:g} x scale); {smi}")
+    check(excess <= 0.0, "forced: segmented vs forced gradient")
+    prob32 = qt.cnot3_problem(nsteps=4, tf=2.2, solver="schulz",
+                              dtype="float32", device=dev)
+    c32 = tuple(qt.BSpline2Control(4, prob32.tf) for _ in range(3))
+    try:
+        qt.eval_grad_forced(prob32, c32, np.zeros(24), qt.cnot3_target(
+            tf=2.2), ORDER)
+    except NotImplementedError as exc:
+        check("forward rule" in str(exc), f"forced f32: {exc}")
+    else:
+        raise RuntimeError("check failed: forward mode passed the f32 "
+                           "kernels")
+    phase("forced", "forward mode through the f32 kernel route raises "
+                    f"NotImplementedError (no forward rule); {smi}")
 
 
 def multistart_phase(dev, smi):
@@ -698,6 +1039,7 @@ def trace_phase(pcof, tgt, dev, smi):
 
 
 def main():
+    t_start = time.perf_counter()
     smi = device_phase()
     import qgd_tpu_torch as qt
 
@@ -715,9 +1057,18 @@ def main():
 
     rows = kernel_phase(prob, controls, pcof, dev, smi)
     main_path_phase(prob, controls, pcof, tgt, dev, rows, smi)
-    optimize_phase(rows, dev, smi)
+    segmented_phase(prob, controls, pcof, tgt, dev, rows, smi)
+    start = optimize_phase(rows, dev, smi)
+    prefix_phase(rows, start, dev, smi)
+    lbfgs_phase(dev, smi)
+    forced_phase(dev, smi)
     multistart_phase(dev, smi)
     trace_phase(pcof, tgt, dev, smi)
+    for row in rows:
+        check(row["launches"] > 0, f"{row['name']} was not launched by its "
+                                   f"phase")
+    phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f}"
+                  f" s; {smi}")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -2,13 +2,15 @@
 control, gate design), for NVIDIA Hopper.
 
 What is ported: gate design end to end. The optimizer drivers
-(``optimize_gate``, scipy L-BFGS-B on the host; ``optimize_gate_multistart``,
-batched L-BFGS on the device), the plain Lagrange route (forward history,
-adjoint sweep, ``objective_and_gradient``, ``discrete_adjoint``) with the
-``"lu"`` and ``"schulz"`` stage solvers, the segmented route at segment
-length 1 (``solver="schulz"``), the objective API, quadratic B-spline,
-GRAPE and carrier-wave controls, the Rabi/CNOT2/CNOT3 problem builders,
-setup checkpoints and the stage-residual diagnostic. Control vectors are
+(``optimize_gate``: scipy L-BFGS-B on the host or L-BFGS on the device;
+``optimize_gate_multistart``, batched L-BFGS on the device), the plain
+Lagrange route (forward history, thinned or whole, adjoint sweep,
+``objective_and_gradient``, ``discrete_adjoint``), the segmented route at
+any segment length and the prefix-product latency route, each with the
+``"lu"`` and ``"schulz"`` stage solvers, the forced, finite-difference and
+Hessian checks, the objective API, every control family with its own
+native de Boor library, the Rabi/CNOT2/CNOT3 problem builders, setup
+checkpoints and the stage-residual diagnostic. Control vectors are
 batched as a leading tensor dimension. The two Pallas kernels of
 ``qgd_tpu/ops/pallas_step.py`` are hand-written CUDA kernels here
 (``csrc/lhs.cu``, ``csrc/rhs.cu``, wrapped in ``ops/stage_kernels.py``),
@@ -42,17 +44,38 @@ from .ops.hermite import (  # noqa: E402
     scaled_derivatives,
     build_rhs,
     build_lhs,
+    adjoint_scaled_derivatives,
+    taylor_expand,
+    form_lhs_matrix,
+    form_rhs_matrix,
 )
 from .controls import (  # noqa: E402
     Control,
     BSpline2Control,
+    BSplineControl,
     GRAPEControl,
     GeneralGRAPEControl,
     CarrierControl,
+    SinCosControl,
+    SinControl,
+    CosControl,
+    SquaredAmpCosControl,
+    SingleSymCosControl,
+    ZeroControl,
+    GeneralBSplineControl,
+    FortranBSplineControl,
+    HermiteControl,
+    HermiteCarrierControl,
     control_tables,
     control_tables_at,
     total_control_parameters,
     control_vector_slice,
+    eval_p,
+    eval_q,
+    eval_p_derivative,
+    eval_q_derivative,
+    eval_grad_p_derivative,
+    eval_grad_q_derivative,
 )
 from .objective import (  # noqa: E402
     infidelity_real,
@@ -77,11 +100,20 @@ from .adjoint import (  # noqa: E402
     compute_guard_forcing,
     compute_terminal_condition,
     objective_and_gradient,
+    eval_grad_forced,
+    eval_grad_finite_difference,
+    eval_hessian,
 )
 from .segmented import (  # noqa: E402
+    choose_segments,
     segmented_objective_and_gradient,
     segmented_gradient,
     segmented_objective_value,
+)
+from .prefix import (  # noqa: E402
+    prefix_objective_and_gradient,
+    prefix_objective_value,
+    eval_forward_prefix,
 )
 from .optimize import (  # noqa: E402
     OptimizationHistory,
@@ -119,15 +151,36 @@ __all__ = [
     "scaled_derivatives",
     "build_rhs",
     "build_lhs",
+    "adjoint_scaled_derivatives",
+    "taylor_expand",
+    "form_lhs_matrix",
+    "form_rhs_matrix",
     "Control",
     "BSpline2Control",
+    "BSplineControl",
     "GRAPEControl",
     "GeneralGRAPEControl",
     "CarrierControl",
+    "SinCosControl",
+    "SinControl",
+    "CosControl",
+    "SquaredAmpCosControl",
+    "SingleSymCosControl",
+    "ZeroControl",
+    "GeneralBSplineControl",
+    "FortranBSplineControl",
+    "HermiteControl",
+    "HermiteCarrierControl",
     "control_tables",
     "control_tables_at",
     "total_control_parameters",
     "control_vector_slice",
+    "eval_p",
+    "eval_q",
+    "eval_p_derivative",
+    "eval_q_derivative",
+    "eval_grad_p_derivative",
+    "eval_grad_q_derivative",
     "infidelity_real",
     "infidelity",
     "guard_penalty_real",
@@ -146,9 +199,16 @@ __all__ = [
     "compute_guard_forcing",
     "compute_terminal_condition",
     "objective_and_gradient",
+    "eval_grad_forced",
+    "eval_grad_finite_difference",
+    "eval_hessian",
+    "choose_segments",
     "segmented_objective_and_gradient",
     "segmented_gradient",
     "segmented_objective_value",
+    "prefix_objective_and_gradient",
+    "prefix_objective_value",
+    "eval_forward_prefix",
     "OptimizationHistory",
     "optimize_gate",
     "optimize_gate_multistart",

@@ -1,22 +1,43 @@
-"""The Lagrange discrete-adjoint gradient of the plain route (counterpart
-of ``qgd_tpu.adjoint``): one forward history shared by the objective and
-its gradient, the guard forcing, the terminal-condition solve, the
-backward multiplier sweep (:func:`~qgd_tpu_torch.forward.eval_adjoint`)
-and the merged per-time-point cotangent
+"""Gradient routes of the plain propagation (counterpart of
+``qgd_tpu.adjoint``).
 
-    cot_j(t_k) = dt^j c_j lambda_{k+1} - (-dt)^j c_j lambda_k
+* :func:`objective_and_gradient` / ``discrete_adjoint(method=
+  "lagrange")``: the Lagrange discrete adjoint. One forward history is
+  shared by the objective and its gradient; then the guard forcing, the
+  terminal-condition solve, the backward multiplier sweep
+  (:func:`~qgd_tpu_torch.forward.eval_adjoint`) and the merged
+  per-time-point cotangent
 
-passed, in chunks of time points, through the VJP of the scaled-derivative
-stack with respect to the control-table values; the pcof chain rule is one
-autograd pass through the whole-grid table build.
+      cot_j(t_k) = dt^j c_j lambda_{k+1} - (-dt)^j c_j lambda_k
 
-``discrete_adjoint(method="ad")`` is the independent cross-check: autograd
-through the whole forward step loop.
+  passed, in chunks of time points, through the VJP of the
+  scaled-derivative stack with respect to the control-table values; the
+  pcof chain rule is one autograd pass through the whole-grid table
+  build.
+* ``discrete_adjoint(method="ad")``: autograd through the whole forward
+  step loop, the independent cross-check.
+* :func:`eval_grad_forced`: forward-mode AD of the objective, one tangent
+  per parameter (the forced / GOAT gradient).
+* :func:`eval_grad_finite_difference`: central differences.
+* :func:`eval_hessian`: forward mode over the Lagrange gradient
+  (``"ad"``), or the reference's four-point differences (``"fd"``).
+
+The forward-mode routes carry one tangent per parameter as a scenario
+batch of copies of ``pcof``, and the difference routes evaluate all their
+perturbed vectors as one scenario batch. Forward mode cannot pass the f32
+CUDA stage kernels (their ``autograd.Function``s have no forward rule, as
+JAX's ``custom_vjp`` refuses ``jacfwd``): those checks run on float64
+problems, on the card as on the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
+from torch.overrides import TorchFunctionMode
 
 from .controls import as_control_tuple, control_tables, control_tables_at
 from .forward import (
@@ -45,7 +66,7 @@ from .ops.linalg import (
     stage_solve_transposed,
 )
 from .problem import working_problem
-from .segmented import _table_cot, segmented_gradient
+from .segmented import _no_graph, _table_cot, segmented_gradient
 
 
 def discrete_adjoint(prob, controls, pcof, target, order: int = 2,
@@ -53,8 +74,8 @@ def discrete_adjoint(prob, controls, pcof, target, order: int = 2,
     """Exact gradient of (terminal cost + guard penalty) with respect to
     ``pcof`` (the ridge gradient is the optimizer's). ``method``:
     ``"lagrange"`` (the default, ``"auto"``), ``"ad"`` (autograd through
-    the forward step loop) or ``"segmented"`` (the segment-length-1
-    route, ``solver="schulz"``)."""
+    the forward step loop) or ``"segmented"`` (the segmented route, its
+    automatic segment count)."""
     controls = as_control_tuple(controls)
     if method == "auto":
         method = "lagrange"
@@ -183,7 +204,7 @@ def _discrete_adjoint_lagrange(prob, controls, pcof, target, order: int,
     with torch.enable_grad():
         pcof_leaf = pcof.clone().requires_grad_(True)
         P64, Q64 = control_tables(controls, pcof_leaf, ts, m)
-    Pw, Qw = P64.detach().to(wd), Q64.detach().to(wd)
+    Pw, Qw = _no_graph(P64).to(wd), _no_graph(Q64).to(wd)
     S, T1 = Pw.shape[:2]
     cotP, cotQ = torch.empty_like(Pw), torch.empty_like(Qw)
     for a, b in _chunks(T1, S):
@@ -200,3 +221,147 @@ def _discrete_adjoint_lagrange(prob, controls, pcof, target, order: int,
         (P64, Q64), pcof_leaf,
         (cotP.to(torch.float64), cotQ.to(torch.float64)))
     return grad
+
+
+def _batched(prob, S: int):
+    """``prob`` with its hoisting estimate sized for ``S`` scenarios."""
+    if int(prob.hoist_batch_hint) < S:
+        return dataclasses.replace(prob, hoist_batch_hint=S)
+    return prob
+
+
+class _ZeroTangents(TorchFunctionMode):
+    """Gives every plain floating operand of an arithmetic op a zero
+    forward-mode tangent when another operand carries one. PyTorch forms
+    the missing tangent of a plain operand as a lazily-zero tensor on a
+    slow path (≈ 0.4 ms per op on the CPU and on the card, about 30× the op
+    itself), so the step loops of the forward-mode checks spent most of
+    their time there. A materialized zero tangent gives the same
+    arithmetic, bit for bit."""
+
+    # what the operators reach (``a * 2`` and ``2 * a`` are Tensor.mul,
+    # ``a += b`` is Tensor.add_, ``2 / a`` is Tensor.__rdiv__)
+    _ARITH = {torch.Tensor.mul, torch.Tensor.div, torch.Tensor.__rdiv__,
+              torch.Tensor.add, torch.Tensor.sub, torch.Tensor.__rsub__,
+              torch.Tensor.matmul, torch.Tensor.add_, torch.mul, torch.div,
+              torch.add, torch.sub, torch.matmul, torch.einsum}
+    # the first operand of these is updated in place: it keeps its own
+    _INPLACE = {torch.Tensor.add_}
+
+    @staticmethod
+    def _zero_tangent(x, like):
+        if isinstance(x, (float, int)) and not isinstance(x, bool):
+            x = torch.tensor(x, dtype=like.dtype, device=like.device)
+        if (not isinstance(x, torch.Tensor) or not x.is_floating_point()
+                or fwAD.unpack_dual(x).tangent is not None):
+            return x
+        if 0 in x.stride():
+            x = x.contiguous()      # a tangent cannot take a broadcast layout
+        return fwAD.make_dual(x, torch.zeros_like(x))
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self._ARITH:
+            like = next((a for a in args if isinstance(a, torch.Tensor)
+                         and fwAD.unpack_dual(a).tangent is not None), None)
+            if like is not None:
+                # einsum's first argument is its equation
+                keep = 1 if (func in self._INPLACE
+                             or func is torch.einsum) else 0
+                args = args[:keep] + tuple(self._zero_tangent(a, like)
+                                           for a in args[keep:])
+        return func(*args, **(kwargs or {}))
+
+
+def _one_tangent_per_parameter(prob, pcof, fn):
+    """Run ``fn(prob, pcof_batch)`` in forward mode on the batch of ``n``
+    copies of the 1-D ``pcof``, copy ``i`` carrying the tangent ``e_i``;
+    returns the tangent of the result (``(n,)`` for a value, ``(n, n)``
+    with row i the derivative along ``e_i`` for a gradient)."""
+    pc = torch.as_tensor(pcof, dtype=torch.float64).to(prob.device).detach()
+    if pc.dim() != 1:
+        raise ValueError(f"pcof must be 1-D, got shape {tuple(pc.shape)}")
+    n = pc.shape[0]
+    eye = torch.eye(n, dtype=torch.float64, device=prob.device)
+    with fwAD.dual_level(), _ZeroTangents():
+        dual = fwAD.make_dual(pc.expand(n, n).contiguous(), eye)
+        out = fn(_batched(prob, n), dual)
+        return fwAD.unpack_dual(out).tangent
+
+
+def eval_grad_forced(prob, controls, pcof, target, order: int = 2,
+                     cost_type: str = "Infidelity"):
+    """Forced / GOAT gradient ``(N_params,)`` of (terminal cost + guard
+    penalty) at the 1-D ``pcof``: forward-mode AD of the discrete scheme
+    with one tangent per parameter, whose tangent states obey the forced
+    variational equation with forcing ``(dA/dtheta_k) w``."""
+    controls = as_control_tuple(controls)
+    return _one_tangent_per_parameter(
+        prob, pcof, lambda p, pc: objective_value(p, controls, pc, target,
+                                                  order, cost_type=cost_type))
+
+
+def _perturbed_values(prob, controls, target, order, cost_type, batch):
+    """Objective (ridge 0) at each row of the numpy ``batch``, as one
+    scenario batch, in float64 numpy."""
+    vals = objective_value(_batched(prob, batch.shape[0]), controls,
+                           torch.as_tensor(batch), target, order,
+                           cost_type=cost_type)
+    return vals.detach().cpu().numpy()
+
+
+def eval_grad_finite_difference(prob, controls, pcof, target, order: int = 2,
+                                dpcof: float = 1e-5,
+                                cost_type: str = "Infidelity"):
+    """Central-difference gradient ``(f(p + d e_i) - f(p - d e_i)) / 2d``
+    at the 1-D ``pcof``, ``d = dpcof``, float64 ``(N_params,)`` on
+    ``prob.device``. The perturbed vectors are formed as the JAX package
+    forms them (``+= d``, then ``-= 2d``) and evaluated in one batch."""
+    controls = as_control_tuple(controls)
+    pc = np.asarray(torch.as_tensor(pcof).detach().cpu(), dtype=np.float64)
+    n = pc.size
+    batch = np.repeat(pc[None], 2 * n, axis=0)
+    for i in range(n):
+        batch[i, i] += dpcof
+        batch[n + i, i] = batch[i, i] - 2 * dpcof
+    vals = _perturbed_values(prob, controls, target, order, cost_type, batch)
+    grad = (vals[:n] - vals[n:]) / (2 * dpcof)
+    return torch.as_tensor(grad, device=prob.device)
+
+
+def eval_hessian(prob, controls, pcof, target, order: int = 2,
+                 cost_type: str = "Infidelity", method: str = "ad"):
+    """Hessian ``(N_params, N_params)`` of (terminal cost + guard penalty)
+    at the 1-D ``pcof``, float64 on ``prob.device``. ``"ad"``: exact,
+    forward mode over the Lagrange gradient; ``"fd"``: the reference's
+    four-point central differences with step 1e-4, the perturbed vectors
+    formed as the JAX package forms them and evaluated in one batch."""
+    controls = as_control_tuple(controls)
+    if method == "ad":
+        H = _one_tangent_per_parameter(
+            prob, pcof, lambda p, pc: _discrete_adjoint_lagrange(
+                p, controls, pc, target, order, cost_type))
+        return H.T.contiguous()
+    if method != "fd":
+        raise ValueError(f"unknown method {method!r}")
+    eps = 1e-4
+    pc = np.asarray(torch.as_tensor(pcof).detach().cpu(), dtype=np.float64)
+    n = pc.size
+    pairs = [(i, j) for i in range(n) for j in range(i, n)]
+    batch = np.empty((4 * len(pairs), n))
+    for k, (i, j) in enumerate(pairs):
+        pij = pc.copy()
+        pij[i] += eps
+        pij[j] += eps
+        batch[4 * k] = pij              # f(++)
+        pij[j] -= 2 * eps
+        batch[4 * k + 1] = pij          # f(+-)
+        pij[i] -= 2 * eps
+        batch[4 * k + 2] = pij          # f(--)
+        pij[j] += 2 * eps
+        batch[4 * k + 3] = pij          # f(-+)
+    f = _perturbed_values(prob, controls, target, order, cost_type, batch)
+    H = np.zeros((n, n))
+    for k, (i, j) in enumerate(pairs):
+        fpp, fpm, fmm, fmp = f[4 * k:4 * k + 4]
+        H[i, j] = H[j, i] = (fpp - fpm - fmp + fmm) / (4 * eps * eps)
+    return torch.as_tensor(H, device=prob.device)

@@ -6,9 +6,9 @@ Format: ``<name>.setup.json`` (static metadata and control specs) plus
 ``<name>.setup.npz`` (all arrays). Controls are frozen dataclasses and
 round-trip generically: each field is a scalar, an array or a nested
 control, serialized by class name against the registry of the port's
-control classes (the same names as the JAX package's). Reading a JAX file,
-the port ignores problem fields it does not carry (the GMRES settings) and
-raises on a solver or a control family it lacks.
+control classes (the same names and fields as the JAX package's, every
+family of it). Reading a JAX file, the port ignores problem fields it does
+not carry (the GMRES settings) and raises on a solver it lacks.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ from .problem import SOLVERS, SchrodingerProblem, problem_from_arrays
 
 def _control_registry() -> dict:
     """All concrete Control subclasses by class name."""
-    from .controls import analytic, bspline, carrier  # noqa: F401
+    from .controls import (analytic, bspline, carrier, deboor,  # noqa: F401
+                           hermite)
 
     reg = {}
 
@@ -69,9 +70,8 @@ def control_from_spec(spec: dict, arrays: dict) -> Control:
     reg = _control_registry()
     name = spec["__control__"]
     if name not in reg:
-        raise NotImplementedError(
-            f"control class {name!r} is not ported (the port has "
-            f"{sorted(reg)}; ROADMAP.md lists the other families)")
+        raise ValueError(f"unknown control class {name!r} (the port has "
+                         f"{sorted(reg)})")
     kwargs = {}
     for field, v in spec["fields"].items():
         if isinstance(v, dict) and "__control__" in v:

@@ -5,9 +5,12 @@ every tensor: a control-vector batch ``pcof (S, N_params)`` gives histories
 
 The step loop is a Python loop with one host-side iteration per step and
 no synchronisation inside it. What does not depend on the state is hoisted
-out of it when it fits (:func:`_use_precomputed_stages`): every step's stage
-matrix, built in one batched call, and its factorization (``solver="lu"``)
-or Newton-Schulz inverse (``solver="schulz"``).
+out of it (:func:`_forward_segment_scan`): a segment's stage matrices,
+built in one batched call, and their factorizations (``solver="lu"``) or
+Newton-Schulz inverses (``solver="schulz"``). The plain route hoists the
+whole horizon as one segment when it fits (:func:`_use_precomputed_stages`);
+the thinned history (``eval_forward(save_every > 1)``) and the segmented
+route run one segment at a time.
 
 Kernel routing (``use_kernels=True``) follows the JAX package: the
 implicit-stage matrices go through the LHS kernel where JAX uses its
@@ -123,10 +126,7 @@ def _stage_from_stack(A, m: int, dt, sign: float, use_kernels: bool = True):
     if _lhs_kernel_applies(A.dtype, m, use_kernels):
         batch = A.shape[:-3]
         flat = A.reshape((-1,) + A.shape[-3:]).contiguous()
-        # the kernel computes sum_j (-d)^j c_j D_j for input d: d = -sign*dt
-        # (dt itself for the implicit side: no op on the card)
-        d = dt if sign == -1.0 else -sign * dt
-        out = hermite_lhs_matrix_kernel_call(flat, d, m)
+        out = hermite_lhs_matrix_kernel_call(flat, dt, m, sign)
         return out.reshape(batch + out.shape[-2:])
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     return build_rhs(scaled_derivatives(A, eye, m), sign * dt, m)
@@ -185,15 +185,67 @@ def _drift_stage_inverse(prob, m: int, dt, transpose: bool = False):
     return schulz_inverse_auto(lhs, prob.schulz_iters)
 
 
-def _hoisted_inverses(prob, m: int, dt, M, transpose: bool = False):
+def _hoisted_inverses(prob, m: int, dt, M, transpose: bool = False,
+                      X0=None):
     """Warm-started Newton-Schulz inverses (f32) of the hoisted stage
-    matrices ``M (S, T', n, n)``, built in chunks of time points."""
-    X0 = _drift_stage_inverse(prob, m, dt, transpose)
+    matrices ``M (S, T', n, n)``, built in chunks of time points. ``X0``,
+    the drift-only inverse, is built here unless the caller hoisted it."""
+    if X0 is None:
+        X0 = _drift_stage_inverse(prob, m, dt, transpose)
     X = torch.empty(M.shape, dtype=torch.float32, device=M.device)
     for a, b in _chunks(M.shape[1], M.shape[0]):
         X[:, a:b] = schulz_inverse_auto(M[:, a:b], prob.schulz_iters, X0=X0,
                                         warm_iters=_warm_budget(prob))
     return X
+
+
+def _hoisted_stage_pairs(prob, m: int, dt, P, Q):
+    """``(R, L)``, each ``(S, T', n, n)``: both one-step matrices at the time
+    points whose tables are ``P, Q (S, T', m, N_ops)``, built in chunks of
+    time points (plain torch, as :func:`_stage_matrices_both`)."""
+    S, T = P.shape[:2]
+    n = prob.real_system_size
+    R = torch.empty((S, T, n, n), dtype=P.dtype, device=P.device)
+    L = torch.empty_like(R)
+    for a, b in _chunks(T, S):
+        R[:, a:b], L[:, a:b] = _stage_matrices_both(prob, m, dt, P[:, a:b],
+                                                    Q[:, a:b])
+    return R, L
+
+
+def _forward_segment_scan(prob, m: int, dt, P_l, Q_l, P_r, Q_r, w_start,
+                          schulz_X0=None, use_kernels: bool = True,
+                          refine_iters=None):
+    """Propagate the scenario batch ``w_start (S, 2N, B)`` through one
+    segment of ``L`` steps whose control tables are ``P_l, Q_l`` at the L
+    left endpoints and ``P_r, Q_r`` at the L right endpoints, ``(S, L, m,
+    N_ops)`` each (work dtype). Returns the in-segment history ``(S, L+1,
+    2N, B)``, index 0 being ``w_start``.
+
+    The segment's implicit-stage matrices are built at once (one
+    LHS-kernel launch at batch S·L in f32), then their Newton-Schulz
+    inverses (``solver="schulz"``, warm-started from ``schulz_X0``, the
+    drift-only inverse) or LU factors (``"lu"``); each step then forms its
+    explicit half (RHS kernel in f32) and solves."""
+    M = _stage_matrices(prob, m, dt, P_r, Q_r, -1.0, use_kernels)
+    if prob.solver == "schulz":
+        X = _hoisted_inverses(prob, m, dt, M, X0=schulz_X0)
+
+        def solve(k, rhs):
+            return inverse_stage_solve(M[:, k], X[:, k], rhs, refine_iters)
+    else:
+        lu, piv = factorize_stages(M)
+
+        def solve(k, rhs):
+            return solve_factored(lu[:, k], piv[:, k], rhs)
+
+    w = w_start
+    states = [w]
+    for k in range(P_l.shape[1]):
+        A_n = assemble_generator_stack(prob, P_l[:, k], Q_l[:, k], m)
+        w = solve(k, _explicit_half(A_n, w, dt, m, use_kernels))
+        states.append(w)
+    return torch.stack(states, dim=1)
 
 
 def _hermite_step(prob, m: int, dt, w, pq_n, pq_np1, schulz_X0=None,
@@ -308,41 +360,58 @@ def hermite_forward_history(prob, controls, pcof, order: int = 2,
     m = order // 2
     pcof, single = _scenario_pcof(prob, pcof)
     wprob, _, dt, P, Q = _working_tables(prob, controls, pcof, m)
-    S, T = P.shape[0], prob.nsteps
-    w = wprob.w0.expand(S, -1, -1)
-    states = [w]
-
-    precompute = (_use_precomputed_stages(wprob, m) if forcing is None
-                  else None)
-    if precompute:
-        lhs_mats = _stage_matrices(wprob, m, dt, P[:, 1:], Q[:, 1:], -1.0,
-                                   use_kernels)
-        if precompute == "full":
-            lu, piv = factorize_stages(lhs_mats)
-
-            def solve(k, rhs):
-                return solve_factored(lu[:, k], piv[:, k], rhs)
-        else:
-            Xs = _hoisted_inverses(wprob, m, dt, lhs_mats)
-
-            def solve(k, rhs):
-                return inverse_stage_solve(lhs_mats[:, k], Xs[:, k], rhs)
-
-        for k in range(T):
-            A_n = assemble_generator_stack(wprob, P[:, k], Q[:, k], m)
-            w = solve(k, _explicit_half(A_n, w, dt, m, use_kernels))
-            states.append(w)
+    w = wprob.w0.expand(P.shape[0], -1, -1)
+    X0 = (_drift_stage_inverse(wprob, m, dt)
+          if prob.solver == "schulz" else None)
+    if forcing is None and _use_precomputed_stages(wprob, m):
+        # the whole horizon as one segment: every stage hoisted
+        hist = _forward_segment_scan(wprob, m, dt, P[:, :-1], Q[:, :-1],
+                                     P[:, 1:], Q[:, 1:], w, X0, use_kernels)
     else:
         if forcing is not None:
             forcing = torch.as_tensor(forcing).to(prob.device,
                                                   prob.work_dtype)
-            forcing = forcing.expand((S,) + tuple(forcing.shape[-4:]))
-        X0 = (_drift_stage_inverse(wprob, m, dt)
-              if prob.solver == "schulz" else None)
-        states.extend(_step_states(wprob, m, dt, P, Q, X0, use_kernels,
-                                   forcing=forcing))
-    hist = torch.stack(states, dim=1)
+            forcing = forcing.expand((P.shape[0],)
+                                     + tuple(forcing.shape[-4:]))
+        hist = torch.stack([w, *_step_states(wprob, m, dt, P, Q, X0,
+                                             use_kernels, forcing=forcing)],
+                           dim=1)
     return hist[0] if single else hist
+
+
+def _thinned_forward_history(prob, controls, pcof, order: int,
+                             save_every: int, use_kernels: bool = True,
+                             refine_iters=None):
+    """The states at every ``save_every``-th step, ``(S, nsteps/save_every
+    + 1, 2N, B)`` in the work dtype for ``pcof (S, N_params)``, without
+    holding the full history: segments of ``save_every`` steps
+    (:func:`_forward_segment_scan`), of which only the last state is kept,
+    so O(save_every) states are alive at a time."""
+    m = order // 2
+    wprob, _, dt, P, Q = _working_tables(prob, controls, pcof, m)
+    X0 = (_drift_stage_inverse(wprob, m, dt)
+          if prob.solver == "schulz" else None)
+    w = wprob.w0.expand(P.shape[0], -1, -1)
+    saved = [w]
+    for a in range(0, prob.nsteps, save_every):
+        b = a + save_every
+        w = _forward_segment_scan(wprob, m, dt, P[:, a:b], Q[:, a:b],
+                                  P[:, a + 1:b + 1], Q[:, a + 1:b + 1], w,
+                                  X0, use_kernels, refine_iters)[:, -1]
+        saved.append(w)
+    return torch.stack(saved, dim=1)
+
+
+def _derivatives_on_grid(prob, controls, pcof, ts, states, order: int,
+                         forcing=None):
+    """Scaled-derivative stacks ``(..., T', m+1, 2N, B)`` (float64) of the
+    states ``(..., T', 2N, B)`` at the times ``ts (T',)``; ``forcing``, if
+    given, ``(..., T', m, 2N, B)``."""
+    m = order // 2
+    P, Q = control_tables(controls, pcof, ts, m)
+    A = assemble_generator_stack(prob, P, Q, m)
+    return scaled_derivatives(A, states.to(torch.float64), m,
+                              forcing=forcing)
 
 
 def eval_forward(prob, controls, pcof, order: int = 2, *, save_every: int = 1,
@@ -353,30 +422,32 @@ def eval_forward(prob, controls, pcof, order: int = 2, *, save_every: int = 1,
     when ``return_derivatives``; no scenario dimension for a 1-D ``pcof``).
 
     ``save_every`` keeps every ``save_every``-th state (``nsteps`` must be
-    divisible by it). The states are those of the full history; the JAX
-    package's thinned propagation, which never holds the full history, is
-    not ported (ROADMAP.md).
+    divisible by it). Without ``forcing``, ``save_every > 1`` also thins
+    memory: the full history is never held
+    (:func:`_thinned_forward_history`).
     """
     controls = as_control_tuple(controls)
     if prob.nsteps % save_every != 0:
         raise ValueError("nsteps must be divisible by save_every")
-    hist = hermite_forward_history(prob, controls, pcof, order,
-                                   forcing=forcing, use_kernels=use_kernels)
-    saved = hist[..., ::save_every, :, :]
-    if not return_derivatives:
-        return saved
-    m = order // 2
-    _, ts = _time_grid(prob)
     pcof_t, single = _scenario_pcof(prob, pcof)
-    P, Q = control_tables(controls, pcof_t, ts[::save_every], m)
-    if single:
-        P, Q = P[0], Q[0]
+    if save_every > 1 and forcing is None:
+        saved = _thinned_forward_history(prob, controls, pcof_t, order,
+                                         save_every, use_kernels)
+    else:
+        saved = hermite_forward_history(prob, controls, pcof_t, order,
+                                        forcing=forcing,
+                                        use_kernels=use_kernels)
+        saved = saved[:, ::save_every]
+    if not return_derivatives:
+        return saved[0] if single else saved
+    _, ts = _time_grid(prob)
     f_saved = None
     if forcing is not None:
         f_saved = torch.as_tensor(forcing).to(
             prob.device, torch.float64)[..., ::save_every, :, :, :]
-    A = assemble_generator_stack(prob, P, Q, m)
-    return scaled_derivatives(A, saved.to(torch.float64), m, forcing=f_saved)
+    derivs = _derivatives_on_grid(prob, controls, pcof_t, ts[::save_every],
+                                  saved, order, forcing=f_saved)
+    return derivs[0] if single else derivs
 
 
 def eval_forward_complex(prob, controls, pcof, order: int = 2, **kwargs):
@@ -421,14 +492,8 @@ def eval_adjoint(prob, controls, pcof, terminal_condition, order: int = 2,
     lams = [lam_N]
     lam = lam_N
     if _use_precomputed_stages(wprob, m):
-        # R and L at t_1..t_{N-1} (index k-1 holds time k), chunked
-        S = P.shape[0]
-        shape = (S, n - 1, wprob.real_system_size, wprob.real_system_size)
-        R = torch.empty(shape, dtype=wd, device=prob.device)
-        L = torch.empty(shape, dtype=wd, device=prob.device)
-        for a, b in _chunks(n - 1, S):
-            R[:, a:b], L[:, a:b] = _stage_matrices_both(
-                wprob, m, dt, P[:, 1 + a:1 + b], Q[:, 1 + a:1 + b])
+        # R and L at t_1..t_{N-1} (index k-1 holds time k)
+        R, L = _hoisted_stage_pairs(wprob, m, dt, P[:, 1:n], Q[:, 1:n])
         LT = L.transpose(-1, -2)
         if prob.solver == "lu":
             lu, piv = factorize_stages(LT)

@@ -94,3 +94,55 @@ def build_rhs(W_derivs: torch.Tensor, dt, m: int) -> torch.Tensor:
 def build_lhs(W_derivs: torch.Tensor, dt, m: int) -> torch.Tensor:
     """Implicit side ``sum_j (-dt)^j c_jm W_j``."""
     return build_rhs(W_derivs, -dt, m)
+
+
+def adjoint_scaled_derivatives(A_stack: torch.Tensor, L0: torch.Tensor,
+                               m: int) -> torch.Tensor:
+    """The recursion of :func:`scaled_derivatives` with every generator
+    replaced by its transpose: ``(..., m, n, n)``, ``(..., n, b)`` ->
+    ``(..., m+1, n, b)``, the scaled derivatives of ``d lambda/dt =
+    A(t)^T lambda`` taken with A's derivative tables."""
+    return scaled_derivatives(A_stack.transpose(-1, -2), L0, m)
+
+
+def taylor_expand(W_derivs: torch.Tensor, dt, m: int) -> torch.Tensor:
+    """Taylor extrapolation ``sum_j dt^j W_j`` of the state at ``t + dt``
+    from the scaled derivatives ``(..., m+1, n, b)`` at ``t`` (Horner)."""
+    acc = W_derivs[..., m, :, :]
+    for j in range(m - 1, -1, -1):
+        acc = W_derivs[..., j, :, :] + dt * acc
+    return acc
+
+
+def step_matrices(A_stack_n: torch.Tensor, A_stack_np1: torch.Tensor, dt,
+                  m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense one-step matrices ``(LHS, RHS)`` with ``LHS w_{n+1} = RHS
+    w_n``, from the recursion on the identity at both ends."""
+    eye = torch.eye(A_stack_n.shape[-1], dtype=A_stack_n.dtype,
+                    device=A_stack_n.device)
+    rhs = build_rhs(scaled_derivatives(A_stack_n, eye, m), dt, m)
+    lhs = build_lhs(scaled_derivatives(A_stack_np1, eye, m), dt, m)
+    return lhs, rhs
+
+
+def _dense_side(prob, controls, t, pcof, dt, order: int, sign: float):
+    from ..controls import control_tables_at
+
+    m = order // 2
+    pcof = torch.as_tensor(pcof, dtype=torch.float64).to(prob.device)
+    p_vals, q_vals = control_tables_at(controls, pcof, t, m)
+    A = assemble_generator_stack(prob, p_vals, q_vals, m)
+    eye = torch.eye(prob.real_system_size, dtype=torch.float64,
+                    device=prob.device)
+    return build_rhs(scaled_derivatives(A, eye, m), sign * dt, m)
+
+
+def form_lhs_matrix(prob, controls, t, pcof, dt, order: int) -> torch.Tensor:
+    """Dense float64 LHS matrix ``sum_j (-dt)^j c_j D_j`` at time ``t``
+    (``(..., 2N, 2N)`` for ``pcof (..., N_params)``)."""
+    return _dense_side(prob, controls, t, pcof, dt, order, -1.0)
+
+
+def form_rhs_matrix(prob, controls, t, pcof, dt, order: int) -> torch.Tensor:
+    """Dense float64 RHS matrix ``sum_j dt^j c_j D_j`` at time ``t``."""
+    return _dense_side(prob, controls, t, pcof, dt, order, 1.0)

@@ -4,8 +4,10 @@ version, an ``autograd.Function`` and a launch counter.
 
 * :func:`hermite_lhs_matrix_kernel_call` replaces the Pallas kernel
   ``qgd_tpu/ops/pallas_step.py:184`` (``hermite_lhs_matrix_kernel_call``):
-  ``A_stack (B, m, n, n)``, scalar ``dt`` -> ``(B, n, n)`` implicit-stage
-  matrices ``sum_j (-dt)^j c_j D_j`` from the recursion on the identity.
+  ``A_stack (B, m, n, n)``, scalar ``dt`` -> ``(B, n, n)`` one-step
+  matrices ``sum_j (sign*dt)^j c_j D_j`` from the recursion on the
+  identity: the implicit-stage matrix at ``sign = -1`` (the Pallas
+  kernel's only sign), the explicit-side matrix at ``sign = +1``.
   At the main-path shape (B=256, n=128, m=2) it is one 128^3 FP32 product
   per matrix, bounded about equally by the FP32 FMA rate and by the bytes
   it must move; one launch per call stages each matrix whole in shared
@@ -35,8 +37,10 @@ JAX.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``: one
 per call that launches the kernel, added where it launches and nowhere
-else. Reset the counters (:func:`reset_launch_counts`) just before the
-run they should attribute.
+else; the LHS wrapper also counts them by step sign
+(:func:`lhs_launches_by_sign`). Reset the counters
+(:func:`reset_launch_counts`) just before the run they should
+attribute.
 """
 
 from __future__ import annotations
@@ -63,14 +67,16 @@ def _stack_scales(dt, m: int, sign: float, device) -> torch.Tensor:
 # plain versions (dtype-generic; the CPU path and the VJP definition)
 # --------------------------------------------------------------------------
 
-def lhs_matrix_plain(A_stack: torch.Tensor, dt, m: int) -> torch.Tensor:
-    """``(B, m, n, n)`` -> ``(B, n, n)``: ``sum_j (-dt)^j c_j D_j`` of the
-    identity recursion, in ``A_stack.dtype``."""
+def lhs_matrix_plain(A_stack: torch.Tensor, dt, m: int,
+                     sign: float = -1.0) -> torch.Tensor:
+    """``(B, m, n, n)`` -> ``(B, n, n)``: ``sum_j (sign*dt)^j c_j D_j`` of
+    the identity recursion, in ``A_stack.dtype``."""
     n = A_stack.shape[-1]
     eye = torch.eye(n, dtype=A_stack.dtype, device=A_stack.device)
+    d = torch.as_tensor(dt, dtype=A_stack.dtype, device=A_stack.device)
+    # build_lhs weighs D_j by (-d)^j
     return build_lhs(scaled_derivatives(A_stack, eye, m),
-                     torch.as_tensor(dt, dtype=A_stack.dtype,
-                                     device=A_stack.device), m)
+                     d if sign == -1.0 else -d, m)
 
 
 def rhs_plain(A_stack: torch.Tensor, W: torch.Tensor, dt,
@@ -124,7 +130,14 @@ def _raise_on(err: int, what: str, shape: str):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def _launch_lhs(A_stack: torch.Tensor, dt, m: int) -> torch.Tensor:
+def _check_sign(sign: float) -> float:
+    if sign not in (-1.0, 1.0):
+        raise ValueError(f"sign must be -1 or +1, got {sign}")
+    return float(sign)
+
+
+def _launch_lhs(A_stack: torch.Tensor, dt, m: int,
+                sign: float) -> torch.Tensor:
     from .cuda_build import load_library
 
     if A_stack.device.type != "cuda":
@@ -144,11 +157,12 @@ def _launch_lhs(A_stack: torch.Tensor, dt, m: int) -> torch.Tensor:
         out = torch.empty((B, n, n), dtype=torch.float32, device=dev)
         err = lib.hermite_lhs_matrix_f32(
             A_stack.data_ptr(), None if dt_t is None else dt_t.data_ptr(),
-            dt_value, -1.0, None if scratch is None else scratch.data_ptr(),
+            dt_value, sign, None if scratch is None else scratch.data_ptr(),
             out.data_ptr(), _coeffs_arg(m), B, m, n,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hermite_lhs_matrix_f32", f"B={B}, m={m}, n={n}")
     hermite_lhs_matrix_kernel_call.launches += 1
+    hermite_lhs_matrix_kernel_call.launches_by_sign[sign] += 1
     return out
 
 
@@ -202,17 +216,26 @@ def _dt_input(ctx, dt_t, index: int):
     return dt_t.detach().requires_grad_(want), want
 
 
+def _no_forward_rule(*_):
+    raise NotImplementedError(
+        "forward-mode AD reached a CUDA stage kernel, which has no forward "
+        "rule (as JAX's custom_vjp refuses jacfwd): run forward-mode checks "
+        "(eval_grad_forced, eval_hessian(method='ad')) on a float64 problem")
+
+
 class HermiteLHSMatrix(torch.autograd.Function):
     """Kernel forward on CUDA (plain forward on the CPU); backward is the
-    VJP of :func:`lhs_matrix_plain`."""
+    VJP of :func:`lhs_matrix_plain`; no forward-mode rule."""
+
+    jvp = staticmethod(_no_forward_rule)
 
     @staticmethod
-    def forward(ctx, A_stack, dt, m):
-        ctx.m = m
+    def forward(ctx, A_stack, dt, m, sign):
+        ctx.m, ctx.sign = m, sign
         ctx.save_for_backward(A_stack, _save_dt(ctx, dt))
         if A_stack.device.type == "cuda":
-            return _launch_lhs(A_stack, dt, m)
-        return lhs_matrix_plain(A_stack, dt, m)
+            return _launch_lhs(A_stack, dt, m, sign)
+        return lhs_matrix_plain(A_stack, dt, m, sign)
 
     @staticmethod
     def backward(ctx, g):
@@ -221,15 +244,17 @@ class HermiteLHSMatrix(torch.autograd.Function):
             a = A_stack.detach().requires_grad_(True)
             d, want_dt = _dt_input(ctx, dt_t, 1)
             inputs = [a, d] if want_dt else [a]
-            out = lhs_matrix_plain(a, d, ctx.m)
+            out = lhs_matrix_plain(a, d, ctx.m, ctx.sign)
             grads = torch.autograd.grad(out, inputs, g.to(out.dtype))
         ddt = grads[1].to(dt_t.dtype) if want_dt else None
-        return grads[0].to(A_stack.dtype), ddt, None
+        return grads[0].to(A_stack.dtype), ddt, None, None
 
 
 class HermiteRHS(torch.autograd.Function):
     """Kernel forward on CUDA (plain forward on the CPU); backward is the
-    VJP of :func:`rhs_plain`."""
+    VJP of :func:`rhs_plain`; no forward-mode rule."""
+
+    jvp = staticmethod(_no_forward_rule)
 
     @staticmethod
     def forward(ctx, A_stack, W, dt, m):
@@ -257,13 +282,15 @@ class HermiteRHS(torch.autograd.Function):
 # public wrappers
 # --------------------------------------------------------------------------
 
-def hermite_lhs_matrix_kernel_call(A_stack: torch.Tensor, dt,
-                                   m: int) -> torch.Tensor:
-    """``A_stack (B, m, n, n)``, scalar ``dt`` -> ``(B, n, n)`` LHS matrices
-    ``sum_j (-dt)^j c_j D_j``. CPU: plain version. CUDA: the kernel."""
+def hermite_lhs_matrix_kernel_call(A_stack: torch.Tensor, dt, m: int,
+                                   sign: float = -1.0) -> torch.Tensor:
+    """``A_stack (B, m, n, n)``, scalar ``dt`` -> ``(B, n, n)`` one-step
+    matrices ``sum_j (sign*dt)^j c_j D_j`` (sign -1: the LHS matrices, +1:
+    the explicit side). CPU: plain version. CUDA: the kernel."""
+    sign = _check_sign(sign)
     if A_stack.device.type == "cpu":
-        return lhs_matrix_plain(A_stack, dt, m)
-    return HermiteLHSMatrix.apply(A_stack, dt, m)
+        return lhs_matrix_plain(A_stack, dt, m, sign)
+    return HermiteLHSMatrix.apply(A_stack, dt, m, sign)
 
 
 def hermite_rhs_kernel_call(A_stack: torch.Tensor, W: torch.Tensor, dt,
@@ -276,17 +303,23 @@ def hermite_rhs_kernel_call(A_stack: torch.Tensor, W: torch.Tensor, dt,
     return HermiteRHS.apply(A_stack, W, dt, m)
 
 
-hermite_lhs_matrix_kernel_call.launches = 0
-hermite_rhs_kernel_call.launches = 0
-
-
 def reset_launch_counts():
     """Set both wrappers' launch counters to 0."""
     hermite_lhs_matrix_kernel_call.launches = 0
+    hermite_lhs_matrix_kernel_call.launches_by_sign = {-1.0: 0, 1.0: 0}
     hermite_rhs_kernel_call.launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
     """``{"hermite_lhs_matrix": n, "hermite_rhs": n}``."""
     return {"hermite_lhs_matrix": hermite_lhs_matrix_kernel_call.launches,
             "hermite_rhs": hermite_rhs_kernel_call.launches}
+
+
+def lhs_launches_by_sign() -> dict:
+    """LHS-kernel launches by step sign: ``{"-1": n, "+1": n}``."""
+    by = hermite_lhs_matrix_kernel_call.launches_by_sign
+    return {"-1": by[-1.0], "+1": by[1.0]}

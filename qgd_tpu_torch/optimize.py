@@ -1,9 +1,12 @@
 """Optimizer drivers (counterpart of ``qgd_tpu.optimize``).
 
-* :func:`optimize_gate`: scipy L-BFGS-B on the host minimizing
-  ``infidelity + guard penalty + ridge`` over one control vector; each
-  evaluation is one objective + gradient call on ``prob.device`` and one
-  copy of its float64 result to the host.
+* :func:`optimize_gate`: one control vector, minimizing ``infidelity +
+  guard penalty + ridge``; each evaluation is one objective + gradient
+  call on ``prob.device``. ``method="lbfgsb"`` is scipy L-BFGS-B on the
+  host (one float64 copy of the result per evaluation);
+  ``method="lbfgs"`` is optax's ``lbfgs`` (its ``scale_by_lbfgs`` memory
+  and the default strong-Wolfe zoom line search) written in torch, with
+  the iterate projected on the box bounds.
 * :func:`optimize_gate_multistart`: L-BFGS with a backtracking (Armijo)
   line search over a batch of starts ``(S, N_params)``, in torch on
   ``prob.device``: the arithmetic of optax's ``lbfgs`` with
@@ -27,10 +30,6 @@ import numpy as np
 import torch
 
 from .controls import as_control_tuple
-
-# Entries of ROADMAP.md "What is left" that the unported options name.
-_LBFGS_ITEM = "ROADMAP.md 'What is left', item 2 (method='lbfgs')"
-_PREFIX_ITEM = "ROADMAP.md 'What is left', item 5 (prefix.py)"
 
 
 @dataclass
@@ -105,18 +104,11 @@ class _StopOptimization(Exception):
     pass
 
 
-def _check_unported(method: str, gradient_route: str,
-                    max_dispatch_steps: int):
-    if method == "lbfgs":
-        raise NotImplementedError(
-            f"method='lbfgs' (L-BFGS on the device with box bounds) is not "
-            f"ported: {_LBFGS_ITEM}; use method='lbfgsb'")
-    if method != "lbfgsb":
+def _check_options(method: str, gradient_route: str,
+                   max_dispatch_steps: int):
+    if method not in ("lbfgsb", "lbfgs"):
         raise ValueError(f"unknown method {method!r}")
-    if gradient_route == "prefix":
-        raise NotImplementedError(
-            f"gradient_route='prefix' is not ported: {_PREFIX_ITEM}")
-    if gradient_route != "auto":
+    if gradient_route not in ("auto", "prefix"):
         raise ValueError(f"unknown gradient_route {gradient_route!r}")
     if max_dispatch_steps > 0:
         raise NotImplementedError(
@@ -141,22 +133,28 @@ def optimize_gate(prob, controls, pcof_init, target, *, order: int = 4,
                   max_dispatch_steps: int = 0,
                   gradient_route: str = "auto",
                   resume_from: str | None = None) -> OptimizationHistory:
-    """Optimize one control vector with scipy L-BFGS-B.
+    """Optimize one control vector: scipy L-BFGS-B (``method="lbfgsb"``)
+    or L-BFGS on the device with projected box bounds (``"lbfgs"``).
 
     ``pcof_L``/``pcof_U``: box bounds, scalar or per-parameter vector.
     ``resume_from``: a history checkpoint basename; restarts from its last
     pcof and appends to the loaded history. ``filename``: the setup
     (:func:`~qgd_tpu_torch.checkpoint.save_setup`) is written once and the
     history after every evaluation. ``n_segments``: ``None`` picks the
-    plain route below 16384 steps and the segmented route (L = 1) above,
-    ``0`` forces the plain route, ``nsteps`` the segmented one. The loop
-    stops once the objective drops below ``stop_objective`` or the wall
-    time passes ``max_cpu_time``. Returns the :class:`OptimizationHistory`.
+    plain route below 16384 steps and the segmented route (automatic
+    segment count) above, ``0`` forces the plain route, ``> 0`` the
+    segmented route with that many segments. ``gradient_route="prefix"``
+    takes the prefix-product route (:mod:`qgd_tpu_torch.prefix`, the
+    single-run latency route; ``n_segments > 0`` sets its segment count).
+    The loop stops once the objective drops below ``stop_objective`` or
+    the wall time passes ``max_cpu_time``. Returns the
+    :class:`OptimizationHistory`.
     """
     from .adjoint import objective_and_gradient
+    from .prefix import prefix_objective_and_gradient
     from .segmented import segmented_objective_and_gradient
 
-    _check_unported(method, gradient_route, max_dispatch_steps)
+    _check_options(method, gradient_route, max_dispatch_steps)
     controls = as_control_tuple(controls)
     resumed = None
     if resume_from is not None:
@@ -197,7 +195,12 @@ def optimize_gate(prob, controls, pcof_init, target, *, order: int = 4,
 
     def value_parts_and_grad(pc):
         pct = torch.as_tensor(pc, dtype=torch.float64, device=prob.device)
-        if n_segments == 0:
+        if gradient_route == "prefix":
+            (j1, guard, ridge), grad = prefix_objective_and_gradient(
+                prob, controls, pct, target, order, cost_type=cost_type,
+                ridge_penalty_strength=ridge_penalty_strength,
+                n_segments=max(n_segments, 0))
+        elif n_segments == 0:
             (j1, guard, ridge), grad = objective_and_gradient(
                 prob, controls, pct, target, order, cost_type=cost_type,
                 ridge_penalty_strength=ridge_penalty_strength)
@@ -233,19 +236,175 @@ def optimize_gate(prob, controls, pcof_init, target, *, order: int = 4,
             raise _StopOptimization
         return val, grad
 
-    from scipy.optimize import minimize
-
     try:
-        minimize(eval_and_record, pcof0, jac=True, method="L-BFGS-B",
-                 bounds=list(zip(lower, upper)),
-                 options=dict(maxiter=maxIter, maxcor=lbfgs_history,
-                              ftol=1e-18, gtol=tol))
+        if method == "lbfgsb":
+            from scipy.optimize import minimize
+
+            minimize(eval_and_record, pcof0, jac=True, method="L-BFGS-B",
+                     bounds=list(zip(lower, upper)),
+                     options=dict(maxiter=maxIter, maxcor=lbfgs_history,
+                                  ftol=1e-18, gtol=tol))
+        else:
+            def silent(pc):
+                val, _, grad = value_parts_and_grad(pc)
+                return float(val), torch.as_tensor(grad, device=prob.device)
+
+            _lbfgs_loop(eval_and_record, silent, pcof0, lower, upper,
+                        maxIter, lbfgs_history, prob.device)
     except _StopOptimization:
         pass
 
     if print_level >= 3:
         print(history.summary())
     return history
+
+
+def _lbfgs_loop(eval_and_record, value_and_grad, pcof0, lower, upper,
+                max_iter: int, memory: int, device):
+    """optax ``lbfgs(memory_size=memory)`` (``scale_by_lbfgs`` with
+    ``scale_init_precond``, ``scale(-1)``, the default
+    ``scale_by_zoom_linesearch(max_linesearch_steps=20,
+    initial_guess_strategy="one")``) on one control vector on ``device``,
+    each iterate clipped to ``[lower, upper]``. ``eval_and_record`` makes
+    the history's one entry per iteration; the line-search probes call
+    ``value_and_grad`` (``(float, tensor)``), which records nothing."""
+    pc = torch.as_tensor(pcof0, dtype=torch.float64, device=device)
+    lo = torch.as_tensor(lower, dtype=torch.float64, device=device)
+    hi = torch.as_tensor(upper, dtype=torch.float64, device=device)
+    # the L-BFGS memory and direction only: its backtracking search is the
+    # multistart's, not used here
+    opt = _BatchedLBFGS(pc[None], memory, 0, 1.0, 1.0)
+    for _ in range(max_iter):
+        val, grad = eval_and_record(pc.cpu().numpy())
+        grad = torch.as_tensor(grad, dtype=torch.float64, device=device)
+        updates = opt.direction(pc[None], grad[None])[0]
+        step = _zoom_linesearch(value_and_grad, pc, updates, float(val),
+                                grad)
+        pc = torch.minimum(torch.maximum(pc + step * updates, lo), hi)
+
+
+def _zoom_linesearch(value_and_grad, params, updates, value: float, grad,
+                     max_steps: int = 20, tol: float = 0.0,
+                     increase_factor: float = 2.0, slope_rtol: float = 1e-4,
+                     curv_rtol: float = 0.9, approx_dec_rtol: float = 1e-6,
+                     interval_threshold: float = 1e-5) -> float:
+    """optax's ``zoom_linesearch`` with its defaults and initial step 1:
+    the step size along ``updates`` from ``params`` that meets the strong
+    Wolfe conditions (sufficient decrease, with the approximate-decrease
+    variant, and curvature), found by growing the step until an interval
+    brackets one and then zooming in by cubic, quadratic or bisection
+    steps; if it fails, the best step with sufficient decrease (or 0 if
+    every probe was non-finite). The scalars are float64 numbers on the
+    host (each decision needs them there); ``value_and_grad(p)`` returns
+    the objective and gradient at ``p``."""
+    f = np.float64
+    inf = f(np.inf)
+    slope_init = f(torch.sum(updates * grad).item())
+    value_init = f(value)
+
+    def on_line(step):
+        v, g = value_and_grad(params + float(step) * updates)
+        return f(v), g, f(torch.sum(g * updates).item())
+
+    def decrease_error(step, v, s):
+        err = v - value_init - slope_rtol * step * slope_init
+        approx = np.maximum(s - (2 * slope_rtol - 1.0) * slope_init,
+                            v - value_init - approx_dec_rtol
+                            * np.abs(value_init))
+        err = np.maximum(np.minimum(approx, err), 0.0)
+        return inf if np.isnan(err) else err
+
+    def curvature_error(s):
+        err = np.maximum(np.abs(s) - curv_rtol * np.abs(slope_init), 0.0)
+        return inf if np.isnan(err) else err
+
+    count, stepsize, cur_v, cur_s = 0, f(0.0), value_init, slope_init
+    dec_err = inf
+    interval_found = done = failed = False
+    low, v_low, s_low = f(0.0), value_init, slope_init
+    high, v_high, s_high = f(0.0), value_init, slope_init
+    c_ref, v_c_ref = f(0.0), value_init
+    safe, safe_v = f(0.0), value_init
+    with np.errstate(all="ignore"):
+        while not (done or failed):
+            if not interval_found:
+                new = f(1.0) if count == 0 else increase_factor * stepsize
+                v, _, s = on_line(new)
+                dec_err = decrease_error(new, v, s)
+                err = np.maximum(dec_err, curvature_error(s))
+                if dec_err <= tol:
+                    safe, safe_v = new, v
+                set_high = (dec_err > 0.0) or (v >= cur_v and count > 0)
+                set_low = s >= 0.0 and not set_high
+                if set_low:
+                    low, v_low, s_low = new, v, s
+                    high, v_high, s_high = stepsize, cur_v, cur_s
+                else:
+                    low, v_low, s_low = stepsize, cur_v, cur_s
+                    high, v_high, s_high = new, v, s
+                interval_found = set_high or set_low or err <= tol
+                done = bool(err <= tol)
+                failed = count + 1 >= max_steps and not done
+                c_ref, v_c_ref = low, v_low
+            else:
+                delta = np.abs(high - low)
+                left, right = np.minimum(high, low), np.maximum(high, low)
+                mid_c = _cubicmin(low, v_low, s_low, high, v_high, c_ref,
+                                  v_c_ref)
+                mid_q = _quadmin(low, v_low, s_low, high, v_high)
+                if left + 0.2 * delta < mid_c < right - 0.2 * delta:
+                    new = mid_c
+                elif left + 0.1 * delta < mid_q < right - 0.1 * delta:
+                    new = mid_q
+                else:
+                    new = (low + high) / 2.0
+                v, _, s = on_line(new)
+                dec_err = decrease_error(new, v, s)
+                err = np.maximum(dec_err, curvature_error(s))
+                if dec_err <= tol and v < safe_v:
+                    safe, safe_v = new, v
+                done = bool(err <= tol)
+                set_high_mid = dec_err > 0.0 or v >= v_low
+                set_high_low = s * (high - low) >= 0.0 and not set_high_mid
+                if set_high_mid or set_high_low:
+                    c_ref, v_c_ref = high, v_high
+                else:
+                    c_ref, v_c_ref = low, v_low
+                if set_high_mid:
+                    high, v_high, s_high = new, v, s
+                elif set_high_low:
+                    high, v_high, s_high = low, v_low, s_low
+                if not set_high_mid:
+                    low, v_low, s_low = new, v, s
+                failed = (count + 1 >= max_steps
+                          or (delta <= interval_threshold and safe > 0.0)
+                          ) and not done
+            count += 1
+            stepsize, cur_v, cur_s = new, v, s
+            if failed and (safe > 0.0 or np.isinf(dec_err)):
+                stepsize = safe
+    return float(stepsize)
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """Minimizer of the cubic through ``(a, fa)`` with slope ``fpa``,
+    ``(b, fb)`` and ``(c, fc)`` (optax's ``_cubicmin``; NaN where there is
+    none)."""
+    C = fpa
+    db, dc = b - a, c - a
+    denom = (db * dc) ** 2 * (db - dc)
+    x, y = fb - fa - C * db, fc - fa - C * dc
+    A = (dc ** 2 * x + -(db ** 2) * y) / denom
+    B = (-(dc ** 3) * x + db ** 3 * y) / denom
+    return a + (-B + np.sqrt(B * B - 3.0 * A * C)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """Minimizer of the quadratic through ``(a, fa)`` with slope ``fpa``
+    and ``(b, fb)`` (optax's ``_quadmin``)."""
+    db = b - a
+    B = (fb - fa - fpa * db) / db ** 2
+    return a - fpa / (2.0 * B)
 
 
 class _BatchedLBFGS:
@@ -353,8 +512,9 @@ def optimize_gate_multistart(prob, controls, pcofs_init, target, *,
     lockstep on ``prob.device``, one objective + gradient call for all S
     starts per iteration and value-only calls for the line-search probes
     of the starts still searching. Starts that reach ``stop_objective``
-    are frozen. ``gradient_route``: ``"plain"`` (the Lagrange route) or
-    ``"segmented"`` (the segment-length-1 route, ``solver="schulz"``).
+    are frozen. ``gradient_route``: ``"plain"`` (the Lagrange route),
+    ``"segmented"`` or ``"prefix"``, the last two with ``n_segments``
+    segments (0: their automatic rule).
     ``prob.hoist_batch_hint`` is raised to S.
 
     Returns ``(pcofs (S, n), objs (iterations, S))``: the final parameters
@@ -365,6 +525,7 @@ def optimize_gate_multistart(prob, controls, pcofs_init, target, *,
 
     from .adjoint import objective_and_gradient
     from .objective import objective_value
+    from .prefix import prefix_objective_and_gradient, prefix_objective_value
     from .segmented import (segmented_objective_and_gradient,
                             segmented_objective_value)
 
@@ -390,8 +551,10 @@ def optimize_gate_multistart(prob, controls, pcofs_init, target, *,
         value_fn = lambda pc: objective_value(prob, controls, pc, target,
                                               order, **kw)
     elif gradient_route == "prefix":
-        raise NotImplementedError(
-            f"gradient_route='prefix' is not ported: {_PREFIX_ITEM}")
+        oag = lambda pc: prefix_objective_and_gradient(
+            prob, controls, pc, target, order, n_segments=n_segments, **kw)
+        value_fn = lambda pc: prefix_objective_value(
+            prob, controls, pc, target, order, n_segments=n_segments, **kw)
     else:
         raise ValueError(f"unknown gradient_route {gradient_route!r}")
 

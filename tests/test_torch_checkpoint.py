@@ -1,7 +1,7 @@
 """Setups and histories cross between the packages: files written by
 qgd_tpu load in qgd_tpu_torch and give the same objective, and the
-reverse; resume_optimization continues the count; the f64 verification
-pass; a setup the port cannot run raises.
+reverse, for every control family; resume_optimization continues the
+count; the f64 verification pass; a setup the port cannot run raises.
 
 Tolerance: objectives of a loaded setup relative <= 1e-12 against the
 other package's, with an absolute floor of 1e-14 (float64, the same
@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("jax")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
@@ -135,5 +136,47 @@ def test_verify_history_f64_and_unported_setups(tmp_path):
         qt.load_setup(str(tmp_path / "gmres"), device="cpu")
     jck.save_setup(str(tmp_path / "hermite"), qgd_tpu.models.cnot2_problem(
         nsteps=8), qgd_tpu.HermiteControl(4, 2.0, 2), tgt)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        qt.load_setup(str(tmp_path / "hermite"), device="cpu")
+    loaded = qt.load_setup(str(tmp_path / "hermite"), device="cpu")
+    assert type(loaded["controls"][0]).__name__ == "_Hermite"
+
+
+def _every_family(pkg, tf):
+    """One control of every family the JAX package has, nested ones too."""
+    return (pkg.SinCosControl(tf, 1.3), pkg.SinControl(tf, 0.7),
+            pkg.CosControl(tf, 2.0), pkg.SquaredAmpCosControl(tf, 1.1),
+            pkg.SingleSymCosControl(tf, 0.9), pkg.ZeroControl(tf, 0),
+            pkg.GeneralBSplineControl(2, 4, tf),
+            pkg.FortranBSplineControl(3, 6, tf), pkg.HermiteControl(3, tf, 1),
+            pkg.HermiteCarrierControl(3, tf, 1, [0.4, -0.9]),
+            pkg.BSplineControl(tf, 4, [0.3]),
+            pkg.GeneralGRAPEControl(2, tf, 1))
+
+
+def test_every_control_family_round_trips_both_ways(tmp_path):
+    """Setups with one control of every family, written by either package,
+    load in the other with the same class names and the same tables."""
+    tf, m = 2.0, 3
+    rng = np.random.default_rng(4)
+    tgt = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+    jprob = qgd_tpu.construct_rabi_prob(nsteps=8)
+    tprob = qt.construct_rabi_prob(nsteps=8, device="cpu")
+    jc, tc = _every_family(qgd_tpu, tf), _every_family(qt, tf)
+    jck.save_setup(str(tmp_path / "j"), jprob, jc, tgt)
+    qt.save_setup(str(tmp_path / "t"), tprob, tc, tgt)
+    from_jax = qt.load_setup(str(tmp_path / "j"), device="cpu")["controls"]
+    from_port = jck.load_setup(str(tmp_path / "t"))["controls"]
+    names = [type(c).__name__ for c in jc]
+    assert [type(c).__name__ for c in from_jax] == names
+    assert [type(c).__name__ for c in from_port] == names
+    n = qt.total_control_parameters(tc)
+    pcof = rng.standard_normal(n) * 0.3
+    ts = np.linspace(0.0, tf, 9)
+    from qgd_tpu.controls import control_tables as j_tables
+
+    tables = jax.jit(lambda c, p: j_tables(c, p, jnp.asarray(ts), m))
+    ref = tables(jc, jnp.asarray(pcof))
+    for ours in (qt.control_tables(from_jax, torch.tensor(pcof), ts, m),
+                 tables(from_port, jnp.asarray(pcof))):
+        for a, b in zip(ours, ref):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       rtol=1e-14, atol=1e-14)

@@ -161,10 +161,12 @@ def test_launch_counters_count_kernel_launches(cuda):
     A, W = _inputs(7, 2, 2, 16, 4, cuda)
     sk.reset_launch_counts()
     qt.ops.hermite_lhs_matrix_kernel_call(A, 0.1, 2)
+    qt.ops.hermite_lhs_matrix_kernel_call(A, 0.1, 2, sign=1.0)
     qt.ops.hermite_rhs_kernel_call(A, W, 0.1, 2)
     qt.ops.hermite_rhs_kernel_call(A, W, 0.1, 2)
     sk.lhs_matrix_plain(A, 0.1, 2)
-    assert sk.launch_counts() == {"hermite_lhs_matrix": 1, "hermite_rhs": 2}
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 2, "hermite_rhs": 2}
+    assert sk.lhs_launches_by_sign() == {"-1": 1, "+1": 1}
 
 
 def test_slice_kernel_route_matches_plain_route(cuda):
@@ -234,3 +236,91 @@ def test_plain_route_on_the_card_matches_cpu_f64(cuda):
     (rj1, rg, _), rgrad = qt.objective_and_gradient(ref, ctrls, pcof, tgt, 4)
     assert float(((j1 + g).cpu() - (rj1 + rg)).abs().max()) <= 1e-4
     assert float((grad.cpu() - rgrad).norm() / rgrad.norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("B,sign", [(10240, -1.0), (275, -1.0), (275, 1.0)])
+def test_lhs_kernel_at_segment_and_prefix_batches(cuda, B, sign):
+    """One segment's hoisted build: L = 40 for 256 scenarios (B = 10240,
+    about 1.3 GB of stack in); the prefix route's R (sign +1) and M
+    (sign -1) at L = 275, one wave and 11 blocks past it."""
+    A, _ = _inputs(22, B, 2, 128, 8, cuda, scale=1.0)
+    dt = torch.tensor(0.1, dtype=torch.float32, device=cuda)
+    out = qt.ops.hermite_lhs_matrix_kernel_call(A, dt, 2, sign)
+    torch.cuda.synchronize()
+    assert _rel_err(out, sk.lhs_matrix_plain(A, dt, 2, sign)) <= REL_TOL
+    last = qt.ops.hermite_lhs_matrix_kernel_call(A[-1:].contiguous(), dt, 2,
+                                                 sign)
+    assert torch.equal(out[-1:], last)
+
+
+def _cnot3_slice(cuda, nsteps):
+    prob = qt.cnot3_problem(tf=0.55 * nsteps, nsteps=nsteps, solver="schulz",
+                            dtype="float32", schulz_iters=48,
+                            schulz_warm_budget=0, device=cuda)
+    ctrls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
+    pcof = np.random.default_rng(0).standard_normal((3, 60)) * 0.01
+    rng = np.random.default_rng(1)
+    tgt = rng.standard_normal((64, 8)) + 1j * rng.standard_normal((64, 8))
+    return prob, ctrls, pcof, tgt
+
+
+def test_general_segment_length_on_the_card(cuda):
+    """CNOT3, 24 steps in 3 segments of 8, 3 scenarios, f32: the kernel
+    route against the plain route and against L = 1; the LHS kernel once
+    per segment in the forward and once in the re-forward, the RHS kernel
+    once per step in each."""
+    prob, ctrls, pcof, tgt = _cnot3_slice(cuda, 24)
+    sk.reset_launch_counts()
+    (j1, g, _), grad = qt.segmented_objective_and_gradient(
+        prob, ctrls, pcof, tgt, 4, n_segments=3)
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 6, "hermite_rhs": 48}
+    for kw in (dict(n_segments=3, use_kernels=False), dict(n_segments=24)):
+        (rj1, rg, _), rgrad = qt.segmented_objective_and_gradient(
+            prob, ctrls, pcof, tgt, 4, **kw)
+        assert float((j1 + g - rj1 - rg).abs().max()) <= 1e-5
+        assert float((grad - rgrad).norm() / rgrad.norm()) <= 1e-4
+
+
+def test_prefix_route_on_the_card(cuda):
+    """The prefix route in f32 with its kernels (3 LHS launches per
+    segment, no RHS) against its plain route and the segmented route."""
+    prob, ctrls, pcof, tgt = _cnot3_slice(cuda, 24)
+    sk.reset_launch_counts()
+    (j1, g, _), grad = qt.prefix_objective_and_gradient(
+        prob, ctrls, pcof, tgt, 4, n_segments=2)
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 6, "hermite_rhs": 0}
+    assert sk.lhs_launches_by_sign() == {"-1": 4, "+1": 2}
+    (pj1, pg, _), pgrad = qt.prefix_objective_and_gradient(
+        prob, ctrls, pcof, tgt, 4, n_segments=2, use_kernels=False)
+    (sj1, sg, _), sgrad = qt.segmented_objective_and_gradient(
+        prob, ctrls, pcof, tgt, 4)
+    for oj, og in ((pj1 + pg, pgrad), (sj1 + sg, sgrad)):
+        assert float((j1 + g - oj).abs().max()) <= 1e-5
+        assert float((grad - og).norm() / og.norm()) <= 1e-4
+
+
+def test_forced_gradient_on_the_card(cuda):
+    """Forward mode through the f32 kernels is refused; in float64 on the
+    card the forced gradient meets the adjoint gate."""
+    prob, ctrls, pcof, tgt = _cnot3_slice(cuda, 4)
+    with pytest.raises(NotImplementedError, match="forward rule"):
+        qt.eval_grad_forced(prob, ctrls, pcof[0], tgt, 4)
+    prob64 = qt.cnot3_problem(tf=2.2, nsteps=4, device=cuda)
+    g_for = qt.eval_grad_forced(prob64, ctrls, pcof[0], tgt, 4)
+    g_adj = qt.discrete_adjoint(prob64, ctrls, pcof[0], tgt, 4)
+    scale = max(1.0, float(g_adj.abs().max()))
+    assert float((g_for - g_adj).abs().max()) <= 1e-14 * scale + 1e-13 * float(
+        g_adj.abs().max())
+
+
+def test_lbfgs_method_on_the_card(cuda):
+    """optimize_gate(method="lbfgs") on the card (Rabi SWAP, f64): the
+    objective falls and the box holds."""
+    prob = qt.construct_rabi_prob(nsteps=40, device=cuda)
+    hist = qt.optimize_gate(prob, qt.GRAPEControl(1, prob.tf),
+                            np.array([0.4, 0.1]),
+                            np.array([[0, 1], [1, 0]], dtype=complex),
+                            order=4, method="lbfgs", maxIter=4,
+                            pcof_L=-0.45, pcof_U=0.45, print_level=0)
+    assert hist.obj_value[-1] < hist.obj_value[0]
+    assert np.abs(np.asarray(hist.pcof)).max() <= 0.45

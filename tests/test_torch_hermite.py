@@ -50,3 +50,39 @@ def test_generator_stack_recursion_and_sides_match_jax(m):
                           (lhs[s], jh.build_lhs(Dj, dt, m))):
             np.testing.assert_allclose(ours.numpy(), np.asarray(ref),
                                        rtol=TOL, atol=TOL)
+
+
+def test_hermite_helpers_match_jax():
+    """adjoint_scaled_derivatives, taylor_expand, step_matrices and the
+    dense form_lhs/rhs_matrix against qgd_tpu.ops.hermite."""
+    m = 3
+    jprob = jm.cnot2_problem(tf=11.0, nsteps=20)
+    tprob = qt.cnot2_problem(tf=11.0, nsteps=20, device="cpu")
+    rng = np.random.default_rng(9)
+    p, q = (rng.standard_normal((2, m, 2)) * 0.2 for _ in range(2))
+    w = rng.standard_normal((8, 4))
+    A = qt.assemble_generator_stack(tprob, torch.tensor(p), torch.tensor(q),
+                                    m)
+    Aj = [jh.assemble_generator_stack(jprob, jnp.asarray(p[i]),
+                                      jnp.asarray(q[i]), m) for i in (0, 1)]
+    L = qt.adjoint_scaled_derivatives(A[0], torch.tensor(w), m)
+    Ws = qt.scaled_derivatives(A[0], torch.tensor(w), m)
+    lhs, rhs = qt.ops.step_matrices(A[0], A[1], 0.55, m)
+    jlhs, jrhs = jh.step_matrices(Aj[0], Aj[1], 0.55, m)
+    Wj = jh.scaled_derivatives(Aj[0], jnp.asarray(w), m)
+    from qgd_tpu.controls import BSpline2Control as JB
+
+    pcof = rng.standard_normal(20) * 0.1
+    jc, tc = (JB(5, 11.0), JB(5, 11.0)), (qt.BSpline2Control(5, 11.0),) * 2
+    for ours, ref in (
+            (L, jh.adjoint_scaled_derivatives(Aj[0], jnp.asarray(w), m)),
+            (qt.taylor_expand(Ws, 0.55, m), jh.taylor_expand(Wj, 0.55, m)),
+            (lhs, jlhs), (rhs, jrhs),
+            (qt.form_lhs_matrix(tprob, tc, 3.3, pcof, 0.55, 2 * m),
+             jh.form_lhs_matrix(jprob, jc, 3.3, jnp.asarray(pcof), 0.55,
+                                2 * m)),
+            (qt.form_rhs_matrix(tprob, tc, 3.3, pcof, 0.55, 2 * m),
+             jh.form_rhs_matrix(jprob, jc, 3.3, jnp.asarray(pcof), 0.55,
+                                2 * m))):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=TOL,
+                                   atol=TOL)

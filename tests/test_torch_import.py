@@ -29,6 +29,10 @@ def test_import_pulls_in_no_jax_and_pins_precision():
         "import qgd_tpu_torch.optimize, qgd_tpu_torch.checkpoint\n"
         "import qgd_tpu_torch.controls.analytic\n"
         "import qgd_tpu_torch.controls.carrier\n"
+        "import qgd_tpu_torch.controls.deboor\n"
+        "import qgd_tpu_torch.controls.hermite\n"
+        "import qgd_tpu_torch.prefix, qgd_tpu_torch.diagnostics\n"
+        "import qgd_tpu_torch.native, qgd_tpu_torch.native.binding\n"
         "print(json.dumps({\n"
         "  'jax': sorted(m for m in sys.modules\n"
         "               if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"

@@ -1,6 +1,7 @@
 """The port's optimizer drivers against the JAX package on the CPU: the
-quick start's ``optimize_gate`` (Rabi SWAP, GRAPE, order 8) and the
-batched ``optimize_gate_multistart`` on both routes.
+quick start's ``optimize_gate`` (Rabi SWAP, GRAPE, order 8), its on-device
+L-BFGS (``method="lbfgs"``, against optax's zoom line search) and the
+batched ``optimize_gate_multistart`` on the plain and segmented routes.
 
 Tolerances: recorded objectives relative <= 1e-9, with an absolute floor
 of 1e-14: the infidelity is ``1 - |tr|^2/N^2`` formed from ``|tr|^2/N^2``
@@ -85,35 +86,58 @@ def test_multistart_matches_jax(route, solver):
 
 
 def test_segmented_route_of_optimize_gate():
-    """n_segments = nsteps takes the segment-length-1 route: the same
-    optimization as the plain route (float64, schulz), and a segment count
-    the port lacks raises."""
+    """n_segments > 0 takes the segmented route: at L = 1 and at L = 10
+    the same optimization as the plain route (float64, schulz); a segment
+    count that does not divide nsteps raises."""
     tprob, tc = _rabi(qt, solver="schulz")
     kw = dict(order=8, maxIter=4, ridge_penalty_strength=1e-2,
               print_level=0)
     plain = qt.optimize_gate(tprob, tc, np.array([0.4, 0.1]), SWAP,
                              n_segments=0, **kw)
-    seg = qt.optimize_gate(tprob, tc, np.array([0.4, 0.1]), SWAP,
-                           n_segments=40, **kw)
-    np.testing.assert_allclose(seg.obj_value, plain.obj_value, rtol=1e-10)
-    with pytest.raises(NotImplementedError, match="segment length 1"):
+    for n_segments in (40, 4):
+        seg = qt.optimize_gate(tprob, tc, np.array([0.4, 0.1]), SWAP,
+                               n_segments=n_segments, **kw)
+        np.testing.assert_allclose(seg.obj_value, plain.obj_value,
+                                   rtol=1e-10)
+    with pytest.raises(ValueError, match="must divide"):
         qt.optimize_gate(tprob, tc, np.array([0.4, 0.1]), SWAP,
-                         n_segments=4, **kw)
+                         n_segments=3, **kw)
 
 
 def test_unported_options_raise():
     tprob, tc = _rabi(qt)
     p0 = np.array([0.4, 0.1])
-    for kw, what in ((dict(method="lbfgs"), "ROADMAP"),
-                     (dict(gradient_route="prefix"), "ROADMAP"),
-                     (dict(max_dispatch_steps=10), "not ported")):
-        with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        qt.optimize_gate(tprob, tc, p0, SWAP, print_level=0,
+                         max_dispatch_steps=10)
+    for kw in (dict(method="newton"), dict(gradient_route="chunked")):
+        with pytest.raises(ValueError):
             qt.optimize_gate(tprob, tc, p0, SWAP, print_level=0, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qt.optimize_gate_multistart(tprob, tc, p0[None], SWAP,
-                                    gradient_route="prefix", print_level=0)
     with pytest.raises(ValueError):
-        qt.optimize_gate(tprob, tc, p0, SWAP, method="newton", print_level=0)
+        qt.optimize_gate_multistart(tprob, tc, p0[None], SWAP,
+                                    gradient_route="chunked", print_level=0)
+
+
+@pytest.mark.parametrize("bounds", [None, 0.45])
+def test_lbfgs_method_matches_optax(bounds):
+    """method="lbfgs": optax's lbfgs with its zoom line search, the iterate
+    clipped to the box, 4 iterations against the JAX package's run
+    (objectives relative <= 1e-10; the bound is active at 0.45)."""
+    jprob, jc = _rabi(qgd_tpu)
+    tprob, tc = _rabi(qt)
+    kw = dict(order=4, ridge_penalty_strength=1e-2, print_level=0,
+              method="lbfgs", maxIter=4)
+    if bounds is not None:
+        kw.update(pcof_L=-bounds, pcof_U=bounds)
+    ref = qgd_tpu.optimize_gate(jprob, jc, jnp.array([0.4, 0.1]), SWAP, **kw)
+    hist = qt.optimize_gate(tprob, tc, np.array([0.4, 0.1]), SWAP, **kw)
+    assert len(hist.obj_value) == len(ref.obj_value) == 4
+    np.testing.assert_allclose(hist.obj_value, ref.obj_value, rtol=1e-10)
+    np.testing.assert_allclose(np.asarray(hist.pcof), np.asarray(ref.pcof),
+                               rtol=0, atol=1e-10)
+    assert hist.obj_value[-1] < hist.obj_value[0]
+    if bounds is not None:
+        assert np.abs(np.asarray(hist.pcof)).max() <= bounds
 
 
 def test_gradient_descent_decreases_objective():

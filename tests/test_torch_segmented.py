@@ -1,16 +1,21 @@
-"""The ported main path — CNOT3 objective + discrete-adjoint gradient,
-order 4, solver="schulz" with warm budget 0, segment length L = 1 —
-against qgd_tpu.segmented.segmented_objective_and_gradient with
-n_segments = nsteps, on the CPU.
+"""The ported segmented route against qgd_tpu.segmented on the CPU: the
+main path's CNOT3 objective + discrete-adjoint gradient at segment length
+L = 1 (order 4, solver="schulz" with warm budget 0) and at general L with
+both solvers, the segment chooser, the thinned forward history and the
+stage-residual diagnostic.
 
-Tolerances: f64 (j1, guard, grad) relative <= 1e-11 — perturbing the f32
-drift inverse by 1e-7 moves the JAX gradient by ~5e-14 relative on this
-slice, so only summation order separates the two; f32 at the same
-refinement sweep count on both sides, objective <= 1e-5 and gradient
-<= 1e-4 relative. A wrong term shows at 1e-2 or more.
+Tolerances: f64 (j1, guard, grad) relative <= 1e-11 at L = 1 — perturbing
+the f32 drift inverse by 1e-7 moves the JAX gradient by ~5e-14 relative on
+this slice, so only summation order separates the two; <= 1e-12 at general
+L, against JAX and against the port's plain route (the same arithmetic in
+another order); f32 at the same refinement sweep count on both sides,
+objective <= 1e-5 and gradient <= 1e-4 relative. Thinned histories
+<= 1e-13 relative. A wrong term shows at 1e-2 or more.
 """
 
 import dataclasses
+import functools
+import types
 
 import numpy as np
 import pytest
@@ -22,8 +27,11 @@ import torch  # noqa: E402
 import qgd_tpu  # noqa: E402
 from qgd_tpu.diagnostics import stage_residuals as j_stage_residuals  # noqa
 from qgd_tpu.ops import linalg as jl  # noqa: E402
+from qgd_tpu.forward import eval_forward as j_eval_forward  # noqa: E402
+from qgd_tpu.segmented import choose_segments as j_choose  # noqa: E402
 from qgd_tpu.segmented import segmented_objective_and_gradient as j_seg  # noqa
 import qgd_tpu_torch as qt  # noqa: E402
+from qgd_tpu_torch.segmented import _auto_segments  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -38,14 +46,14 @@ def _inputs():
     return pcof, tgt
 
 
-def _problems(dtype, **over):
+def _problems(dtype, tf=TF, nsteps=NSTEPS, **over):
     kw = dict(SETTINGS, **over)
     jprob = dataclasses.replace(
-        qgd_tpu.models.cnot3_problem(tf=TF, nsteps=NSTEPS), dtype=dtype, **kw)
-    tprob = qt.cnot3_problem(tf=TF, nsteps=NSTEPS, dtype=dtype, device="cpu",
+        qgd_tpu.models.cnot3_problem(tf=tf, nsteps=nsteps), dtype=dtype, **kw)
+    tprob = qt.cnot3_problem(tf=tf, nsteps=nsteps, dtype=dtype, device="cpu",
                              **kw)
-    jc = tuple(qgd_tpu.BSpline2Control(10, TF) for _ in range(3))
-    tc = tuple(qt.BSpline2Control(10, TF) for _ in range(3))
+    jc = tuple(qgd_tpu.BSpline2Control(10, tf) for _ in range(3))
+    tc = tuple(qt.BSpline2Control(10, tf) for _ in range(3))
     return jprob, jc, tprob, tc
 
 
@@ -77,11 +85,13 @@ def test_cnot3_l1_slice_matches_jax(dtype, tol_obj, tol_grad):
 
 
 def test_single_control_vector_and_auto_segments():
-    """A 1-D pcof gives scalars; n_segments = 0 picks L = 1."""
+    """A 1-D pcof gives scalars; n_segments = 0 on the CPU takes the
+    sqrt-length rule, as in JAX (nsteps = 8: 4 segments of 2 steps)."""
     pcof, tgt = _inputs()
     _, _, tprob, tc = _problems("float64")
+    assert _auto_segments(tprob, NSTEPS, S) == j_choose(NSTEPS) == 4
     (j1b, gb, _), gradb = qt.segmented_objective_and_gradient(
-        tprob, tc, pcof[:1], tgt, 4, n_segments=NSTEPS)
+        tprob, tc, pcof[:1], tgt, 4, n_segments=4)
     (j1, g, _), grad = qt.segmented_objective_and_gradient(
         tprob, tc, pcof[0], tgt, 4)
     assert j1.dim() == 0 and grad.shape == (60,)
@@ -90,14 +100,98 @@ def test_single_control_vector_and_auto_segments():
 
 
 def test_unported_routes_raise():
+    """What the route cannot take raises: a segment count that does not
+    divide nsteps, and a solver the port lacks (GMRES)."""
     pcof, tgt = _inputs()
     _, _, tprob, tc = _problems("float64")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="must divide"):
         qt.segmented_objective_and_gradient(tprob, tc, pcof, tgt, 4,
-                                            n_segments=4)
-    with pytest.raises(NotImplementedError):
-        qt.segmented_objective_and_gradient(
-            dataclasses.replace(tprob, solver="lu"), tc, pcof, tgt, 4)
+                                            n_segments=3)
+    with pytest.raises(ValueError, match="must divide"):
+        qt.segmented_objective_value(tprob, tc, pcof, tgt, 4, n_segments=5)
+    with pytest.raises(NotImplementedError, match="gmres"):
+        qt.cnot3_problem(tf=TF, nsteps=NSTEPS, solver="gmres", device="cpu")
+
+
+@pytest.mark.parametrize("solver", ["schulz", "lu"])
+@pytest.mark.parametrize("L", [2, 8])
+def test_general_segment_length_matches_jax(solver, L):
+    """nsteps = 16 in 16 / L segments: the re-forward route, against JAX
+    and against the port's plain route, the value-only forward too."""
+    pcof, tgt = _inputs()
+    jprob, jc, tprob, tc = _problems("float64", solver=solver, tf=2 * TF,
+                                     nsteps=2 * NSTEPS)
+    kw = dict(ridge_penalty_strength=1e-3, n_segments=2 * NSTEPS // L)
+    (j1, guard, ridge), grad = qt.segmented_objective_and_gradient(
+        tprob, tc, pcof, tgt, 4, **kw)
+    val = qt.segmented_objective_value(tprob, tc, pcof, tgt, 4, **kw)
+    (pj1, pg, _), pgrad = qt.objective_and_gradient(
+        tprob, tc, pcof, tgt, 4, ridge_penalty_strength=1e-3)
+    for s in range(S):
+        (jj1, jg, jr), jgrad = j_seg(jprob, jc, jnp.asarray(pcof[s]), tgt, 4,
+                                     **kw)
+        assert _rel(j1[s], jj1) <= 1e-12 and _rel(guard[s], jg) <= 1e-12
+        assert _rel(grad[s], jgrad) <= 1e-12
+        assert _rel(val[s], jj1 + jg + jr) <= 1e-12
+        assert _rel(j1[s], pj1[s]) <= 1e-12 and _rel(guard[s], pg[s]) <= 1e-12
+        assert _rel(grad[s], pgrad[s]) <= 1e-12
+
+
+def test_choose_segments_matches_jax():
+    """The divisor chosen from the factorization is JAX's, with and
+    without a target length (the prefix route's rule), a prime included."""
+    for n in (1, 64, 997, 1000, 5500, 20480):
+        for target in (0, max(256, int(n ** 0.5))):
+            assert qt.choose_segments(n, target) == j_choose(n, target), \
+                (n, target)
+
+
+def test_auto_rule_on_the_card():
+    """f32 on the card: the largest segment count whose stored states fit
+    4 GB, counting the L = 1 route's trajectory and multipliers. The main
+    path (CNOT3, nsteps 1000, 256 scenarios, 1 MiB per state) keeps L = 1;
+    at the published 5500 steps it takes L = 2; f64 takes the sqrt rule."""
+    card = types.SimpleNamespace(
+        device=torch.device("cuda"), work_dtype=torch.float32,
+        real_system_size=128, N_initial_conditions=8)
+    assert _auto_segments(card, 1000, 256) == 1000
+    assert _auto_segments(card, 5500, 256) == 2750
+    assert _auto_segments(card, 5500, 1) == 5500
+    card.work_dtype = torch.float64
+    assert _auto_segments(card, 5500, 256) == j_choose(5500)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_thinned(save_every, s):
+    """JAX's thinned history with derivative columns for scenario ``s``;
+    its level-0 column is the thinned history itself (one compile per
+    ``save_every`` serves both cases)."""
+    pcof, _ = _inputs()
+    jprob, jc, _, _ = _problems("float64", solver="lu", tf=4 * TF,
+                                nsteps=4 * NSTEPS)
+    return np.asarray(j_eval_forward(jprob, jc, jnp.asarray(pcof[s]), 4,
+                                     save_every=save_every,
+                                     return_derivatives=True))
+
+
+@pytest.mark.parametrize("derivatives", [False, True])
+@pytest.mark.parametrize("save_every", [4, 16])
+def test_thinned_eval_forward_matches_jax(save_every, derivatives):
+    """eval_forward(save_every > 1) from segments of save_every steps,
+    with the scaled-derivative columns or without, against JAX and
+    against the slice of the port's full history."""
+    pcof, _ = _inputs()
+    _, _, tprob, tc = _problems("float64", solver="lu", tf=4 * TF,
+                                nsteps=4 * NSTEPS)
+    thin = qt.eval_forward(tprob, tc, pcof, 4, save_every=save_every,
+                           return_derivatives=derivatives)
+    n_saved = 4 * NSTEPS // save_every + 1
+    assert thin.shape[:2] == (S, n_saved)
+    for s in range(S):
+        ref = _jax_thinned(save_every, s)
+        assert _rel(thin[s], ref if derivatives else ref[:, 0]) <= 1e-13
+    full = qt.eval_forward(tprob, tc, pcof, 4, return_derivatives=derivatives)
+    assert _rel(thin, full[:, ::save_every]) <= 1e-13
 
 
 @pytest.mark.parametrize("cost_type", ["Tracking", "Norm"])
@@ -156,3 +250,14 @@ def test_stage_residuals_match_jax(dtype, rtol):
     if dtype == "float32":
         # the port's default 3 sweeps reach the f32 roundoff floor
         assert qt.stage_residuals(tprob, tc, pcof, 4, sample=4)["max"] <= 1e-6
+
+
+def test_stage_residuals_lu_matches_jax():
+    """solver="lu": the residual is f64 roundoff, in both packages."""
+    pcof, _ = _inputs()
+    jprob, jc, tprob, tc = _problems("float64", solver="lu")
+    ours = qt.stage_residuals(tprob, tc, pcof, 4, sample=4)
+    ref = j_stage_residuals(jprob, jc, jnp.asarray(pcof[0]), 4, sample=4)
+    assert ours["solver"] == ref["solver"] == "lu"
+    assert ours["n_sampled"] == 2 * ref["n_sampled"] == 8
+    assert ours["max"] <= 1e-14 and ref["max"] <= 1e-14

@@ -52,11 +52,17 @@ def test_plain_versions_match_hermite_definition_f64(m):
     A, W = _inputs(2, 3, m, 16, 4, dtype=np.float64)
     dt = 0.37
     lhs = sk.lhs_matrix_plain(torch.tensor(A), dt, m).numpy()
+    # sign +1: the explicit-side matrices sum_j dt^j c_j D_j
+    lhs_plus = sk.hermite_lhs_matrix_kernel_call(torch.tensor(A), dt, m,
+                                                 sign=1.0).numpy()
     rhs = sk.rhs_plain(torch.tensor(A), torch.tensor(W), dt, m).numpy()
     for k in range(3):
         D = scaled_derivatives(jnp.asarray(A[k]), jnp.eye(16), m)
         Ws = scaled_derivatives(jnp.asarray(A[k]), jnp.asarray(W[k]), m)
         np.testing.assert_allclose(lhs[k], np.asarray(build_lhs(D, dt, m)),
+                                   rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(lhs_plus[k],
+                                   np.asarray(build_rhs(D, dt, m)),
                                    rtol=1e-12, atol=1e-12)
         np.testing.assert_allclose(rhs[k], np.asarray(build_rhs(Ws, dt, m)),
                                    rtol=1e-12, atol=1e-12)
@@ -70,9 +76,9 @@ def test_autograd_functions_gradcheck_f64(fn):
     d = torch.tensor(0.3, dtype=torch.float64, requires_grad=True)
     if fn == "lhs":
         assert torch.autograd.gradcheck(
-            lambda a_, d_: sk.HermiteLHSMatrix.apply(a_, d_, 2), (a, d))
+            lambda a_, d_: sk.HermiteLHSMatrix.apply(a_, d_, 2, -1.0), (a, d))
         assert torch.autograd.gradcheck(
-            lambda a_: sk.HermiteLHSMatrix.apply(a_, 0.3, 2), (a,))
+            lambda a_: sk.HermiteLHSMatrix.apply(a_, 0.3, 2, 1.0), (a,))
     else:
         assert torch.autograd.gradcheck(
             lambda a_, w_, d_: sk.HermiteRHS.apply(a_, w_, d_, 2),
@@ -89,9 +95,14 @@ def test_cpu_tensors_take_plain_version_and_launch_nothing():
                        sk.lhs_matrix_plain(a, 0.1, 2))
     assert torch.equal(sk.hermite_rhs_kernel_call(a, w, 0.1, 2),
                        sk.rhs_plain(a, w, 0.1, 2))
+    assert torch.equal(sk.hermite_lhs_matrix_kernel_call(a, 0.1, 2, 1.0),
+                       sk.lhs_matrix_plain(a, 0.1, 2, 1.0))
     assert sk.launch_counts() == {"hermite_lhs_matrix": 0, "hermite_rhs": 0}
+    assert sk.lhs_launches_by_sign() == {"-1": 0, "+1": 0}
     with pytest.raises(ValueError):
-        sk._launch_lhs(a, 0.1, 2)
+        sk.hermite_lhs_matrix_kernel_call(a, 0.1, 2, 0.5)
+    with pytest.raises(ValueError):
+        sk._launch_lhs(a, 0.1, 2, -1.0)
     with pytest.raises(ValueError):
         sk._launch_rhs(a, w, 0.1, 2)
 
