@@ -2,8 +2,9 @@
 sources in this checkout, checks each against its plain PyTorch version on
 the card at every shape the driven paths give it and times it beside its
 bound, its library yardstick and with L2 flushed, then drives the main
-path, the optimizer and the batched multistart once each, checks what
-comes out, and profiles one shorter call of the main path.
+path, the optimizer, the batched multistart and the matrix-free GMRES
+route once each, checks what comes out, and profiles one shorter call of
+the main path.
 
 The main path: the CNOT3 objective + exact discrete-adjoint gradient
 (3 coupled transmons (4,4,4), real-stacked state 2N = 128, 8 gate-basis
@@ -32,8 +33,18 @@ segment, both signs), its gradient at the start point held against the
 plain route's and float64. The L-BFGS phase: ``optimize_gate(method=
 "lbfgs")`` (on-device L-BFGS, zoom line search, projected bounds) on the
 same setup, prefix route. The forced-gradient phase, in float64 on the
-card: the general-L segmented gradient of Rabi at nsteps = 20480 held
+card: the general-L segmented gradient of Rabi at nsteps = 10240 held
 against forward-mode AD (``eval_grad_forced``).
+
+The gmres phase: ``solver="gmres"`` with the diagonal preconditioner,
+whose GMRES operator is the RHS kernel at step sign -1: the main path's
+configuration (S = 256, nsteps = 1000, 20 Arnoldi steps) on the segmented
+route held against float64 LU, with launches by sign, and the autograd
+gradient of a 20-step slice (the transposed solves); ``optimize_gate`` on
+the optimize phase's setup; and CNOT3's transmons at 8 levels each (512
+levels, 2N = 1024: the ring kernel), whose stage matrices are never built,
+single-device and level-sharded (``tp_forward_history``) on a one-rank
+NCCL group.
 
     python3 chip_smoke.py
 
@@ -44,6 +55,7 @@ JAX. The last line is a JSON object with "ok" and the device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -83,7 +95,7 @@ MS_NSTEPS, MS_STARTS, MS_ITERS = 1000, 256, 2
 # tolerances (tests/test_segmented.py's VERDICT gate: adjoint vs forced
 # rtol 1e-13, atol 1e-14 * max(1, |g|max)).
 LBFGS_ITERS = 3
-FORCED_NSTEPS = 20480
+FORCED_NSTEPS = 10240
 # The prefix route's segment length at OPT_NSTEPS: choose_segments(5500,
 # target_len=256) gives 20 segments.
 PREFIX_L = 275
@@ -95,6 +107,19 @@ PREFIX_L = 275
 # drift from f64 several times as far as the serial route's solves.
 PREFIX_F64_TOL = 1e-9
 FORCED_RTOL, FORCED_ATOL = 1e-13, 1e-14
+# GMRES phase: Arnoldi steps per stage solve; the autograd slice's steps;
+# L-BFGS-B iterations of its optimize_gate and the Arnoldi steps there (at
+# dt = 0.1 the diagonally preconditioned stage converges in 3: float64
+# residual 2.5e-16, float32 4e-8 from 2 on, on the CPU, as the reference's
+# tolerance-driven GMRES would stop); the 512-level system's steps.
+# The large system's f32 history against f64 LU (O(1) entries, 200 steps
+# of f32 roundoff), and the level-sharded history against the
+# single-device one (the same GMRES, plain products in place of the
+# kernel: f32 roundoff only).
+GMRES_ITERS, GMRES_AD_STEPS, GMRES_OPT_ITERS, GMRES_OPT_BUDGET = 20, 20, 2, 4
+LARGE_NSTEPS = 200
+GMRES_TRACE_STEPS = 10
+LARGE_F64_TOL, TP_TOL = 1e-4, 1e-5
 
 
 def phase(name, msg):
@@ -302,6 +327,18 @@ def kernel_phase(prob, controls, pcof, dev, smi):
 
     A, W, dt = _main_path_stacks(prob, controls, pcof, dev)
     rows = _kernel_rows(A, W, dt, dev, smi, "main")
+    # the gmres phase's shapes: the GMRES operator (RHS kernel at sign -1)
+    # on the main path's stacks, on their transposed copy (the reverse
+    # solve of the autograd gradient) and at 512 levels (the ring kernel)
+    rows += _kernel_rows(A, W, dt, dev, smi, "gmres", lhs=False,
+                         rhs_sign=-1.0, rhs_tag="B=256,sign=-1")
+    rows += _kernel_rows(A.transpose(-1, -2).contiguous(), W, dt, dev, smi,
+                         "gmres_ad", lhs=False, rhs_sign=-1.0,
+                         rhs_tag="B=256,sign=-1,transposed")
+    del A, W
+    A, W, dt = _large_stacks(dev)
+    rows += _kernel_rows(A, W, dt, dev, smi, "gmres_large", lhs=False,
+                         rhs_sign=-1.0, rhs_tag="B=1,n=1024,sign=-1")
     del A, W
     # the segmented phase's shape: one segment's implicit-stage build at
     # L = 40 for the 256 scenarios (B = 10240)
@@ -314,11 +351,68 @@ def kernel_phase(prob, controls, pcof, dev, smi):
     # L = 275 (B = 275)
     A, W, dt = _optimize_stacks(dev)
     rows += _kernel_rows(A, W[:1], dt, dev, smi, "optimize", "B=5500")
+    # the gmres phase's optimize_gate: the GMRES operator of one control
+    # vector (B = 1)
+    rows += _kernel_rows(A, W[:1], dt, dev, smi, "gmres_optimize",
+                         lhs=False, rhs_sign=-1.0, rhs_tag="B=1,sign=-1")
     rows += _kernel_rows(A[:PREFIX_L].contiguous(), None, dt, dev, smi,
                          "prefix", "B=275,sign=-1")
     rows += _kernel_rows(A[:PREFIX_L].contiguous(), None, dt, dev, smi,
                          "prefix", "B=275,sign=+1", sign=1.0)
     return rows
+
+
+def _large_problem(dev, dtype="float32", solver="gmres"):
+    """CNOT3's transmons with 8 levels each: 512 levels, 2N = 1024, the
+    2 x 2 x 2 essential block (8 gate columns), CNOT3's frequencies, frame
+    and Kerr matrix; LARGE_NSTEPS steps of dt = 0.1; GMRES with the
+    diagonal preconditioner, and 3 x BSpline2Control(10)."""
+    import qgd_tpu_torch as qt
+
+    freqs = 2 * np.pi * np.array([4.10336, 4.81831, 7.8447])
+    xi = 2 * np.pi * np.array([0.2198, 0.2252, 0.001])
+    x12, x13, x23 = 2 * np.pi * np.array([0.01, 0.001, 0.001])
+    kerr = np.array([[xi[0], x12, x13], [x12, xi[1], x23],
+                     [x13, x23, xi[2]]])
+    kw = dict(solver=solver, dtype=dtype, device=dev)
+    if solver == "gmres":
+        kw.update(gmres_iters=GMRES_ITERS, preconditioner_type="diagonal")
+    prob = qt.DispersiveProblem((8, 8, 8), (2, 2, 2), freqs, freqs, kerr,
+                                LARGE_NSTEPS * 0.1, LARGE_NSTEPS, **kw)
+    controls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
+    return prob, controls
+
+
+def _large_stacks(dev):
+    """The generator stack (1, m, 1024, 1024) of the large system at its
+    middle step, as its GMRES operator hands it to the RHS kernel, and a
+    state block (1, 1024, 8)."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.forward import _time_grid
+
+    m = ORDER // 2
+    prob, controls = _large_problem(dev)
+    _, ts = _time_grid(prob)
+    pc = _main_pcof(dev)[:1]
+    P, Q = qt.control_tables(controls, pc, ts[LARGE_NSTEPS // 2:
+                                              LARGE_NSTEPS // 2 + 1], m)
+    A = qt.assemble_generator_stack(qt.working_problem(prob),
+                                    P[:, 0].float(), Q[:, 0].float(),
+                                    m).contiguous()
+    rng = np.random.default_rng(4)
+    W = torch.tensor(rng.standard_normal((1, 1024, 8)), dtype=torch.float32,
+                     device=dev)
+    W = W / W.norm(dim=-2, keepdim=True)
+    dt = torch.tensor(prob.tf / prob.nsteps, dtype=torch.float32,
+                      device=dev)
+    return A, W, dt
+
+
+def _main_pcof(dev):
+    """The main phase's seed-0 control vectors."""
+    return torch.tensor(
+        np.random.default_rng(0).standard_normal((SCENARIOS, 60)) * 0.01,
+        dtype=torch.float64, device=dev)
 
 
 def _segment_stacks(prob, controls, pcof, dev):
@@ -364,12 +458,15 @@ def _optimize_stacks(dev):
     return A, W, dt
 
 
-def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0):
+def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
+                 lhs=True, rhs_sign=1.0, rhs_tag=None):
     """One JSON row per kernel at these inputs: LHS on ``A`` (B, m, n, n)
     with step sign ``sign`` (-1: the implicit-stage matrix LHS(t), +1: the
-    explicit-side R(t)), RHS on ``A[:B_rhs]`` and ``W`` (B_rhs, n, b)
-    unless ``W`` is None. ``driven_by`` names the phase whose launches the
-    rows report; ``tag`` is appended to the names of a second shape's
+    explicit-side R(t)) unless ``lhs`` is false, RHS on ``A[:B_rhs]`` and
+    ``W`` (B_rhs, n, b) with step sign ``rhs_sign`` (+1: the explicit
+    half, -1: the GMRES operator) unless ``W`` is None. ``driven_by`` names
+    the phase whose launches the rows report; ``tag`` (``rhs_tag``, default
+    ``B=...``) is appended to the names of a second shape's LHS (RHS)
     rows."""
     import qgd_tpu_torch as qt
     from qgd_tpu_torch.ops import stage_kernels as sk
@@ -381,8 +478,9 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0):
     # what each function must do: the LHS one n^3 product per matrix at
     # m = 2, the RHS m(m+1)/2 products of n^2 b; each input read once, each
     # output written once
-    work = {"hermite_lhs_matrix": (2 * n ** 3 * B_l * (m - 1),
-                                   (A.numel() + B_l * n * n) * f32)}
+    work = {} if not lhs else {
+        "hermite_lhs_matrix": (2 * n ** 3 * B_l * (m - 1),
+                               (A.numel() + B_l * n * n) * f32)}
     if W is not None:
         b = W.shape[-1]
         Ar = A[:W.shape[0]].contiguous()
@@ -392,25 +490,35 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0):
     # the library yardstick of the LHS at m = 2: one cuBLAS batched FP32
     # product, C + (c2/2) At0 At0 with C = c0 I + c1 At0 + (c2/2) At1 on
     # the scaled stack, prepared outside the timed graph
-    c = qt.hermite_coefficients(m)
-    scales = sk._stack_scales(dt, m, sign, dev)
-    a0s, a1s = A[:, 0] * scales[0], A[:, 1] * scales[1]
-    C = (c[0] * torch.eye(n, device=dev) + c[1] * a0s + (c[2] / 2) * a1s)
-    del a1s
-    library = lambda: torch.baddbmm(C, a0s, a0s, alpha=c[2] / 2)
+    cases = []
+    if lhs:
+        c = qt.hermite_coefficients(m)
+        scales = sk._stack_scales(dt, m, sign, dev)
+        a0s, a1s = A[:, 0] * scales[0], A[:, 1] * scales[1]
+        C = (c[0] * torch.eye(n, device=dev) + c[1] * a0s
+             + (c[2] / 2) * a1s)
+        del a1s
+        library = lambda: torch.baddbmm(C, a0s, a0s, alpha=c[2] / 2)
+        cases.append(("hermite_lhs_matrix", "qgd_tpu_torch/csrc/lhs.cu",
+                      "qgd_tpu/ops/pallas_step.py:184",
+                      lambda: sk.hermite_lhs_matrix_kernel_call(A, dt, m,
+                                                                sign),
+                      lambda: sk.lhs_matrix_plain(A, dt, m, sign), library,
+                      B_l))
     flush_buf = torch.empty(FLUSH_BYTES // f32, dtype=torch.float32,
                             device=dev)
     flush = flush_buf.zero_
     rows = []
-    cases = [("hermite_lhs_matrix", "qgd_tpu_torch/csrc/lhs.cu",
-              "qgd_tpu/ops/pallas_step.py:184",
-              lambda: sk.hermite_lhs_matrix_kernel_call(A, dt, m, sign),
-              lambda: sk.lhs_matrix_plain(A, dt, m, sign), library, B_l)]
     if W is not None:
+        # the entry each driven path calls: the GMRES operator launches
+        # without the autograd.Function
+        entry = (sk.hermite_rhs_kernel_call if rhs_sign == 1.0
+                 else sk.hermite_rhs_kernel_launch)
         cases.append(("hermite_rhs", "qgd_tpu_torch/csrc/rhs.cu",
                       "qgd_tpu/ops/pallas_step.py:91",
-                      lambda: sk.hermite_rhs_kernel_call(Ar, W, dt, m),
-                      lambda: sk.rhs_plain(Ar, W, dt, m), None, B_r))
+                      lambda: entry(Ar, W, dt, m, rhs_sign),
+                      lambda: sk.rhs_plain(Ar, W, dt, m, rhs_sign), None,
+                      B_r))
     for name, src, replaces, kern, plain, lib, B in cases:
         out, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -438,12 +546,13 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0):
         eager = [_eager_ms(f) for f in (plain, kern)]
         host_us = _host_us(kern, calls=200 if calls == 20 else 20)
         kernels = _device_kernels(kern)
-        row_tag = (f"B={B}" if name == "hermite_rhs" else tag)
-        row = {"name": f"{name}[{row_tag}]" if tag else name,
+        row_tag = ((rhs_tag or f"B={B}") if name == "hermite_rhs" else tag)
+        row = {"name": f"{name}[{row_tag}]" if tag or rhs_tag else name,
                "route": "cuda", "source": src,
                "replaces": replaces, "launches": 0, "phase": driven_by,
                "shape": {"B": B, "n": n, "m": m,
-                         **({"b": b} if name == "hermite_rhs"
+                         **({"b": b, "sign": int(rhs_sign)}
+                            if name == "hermite_rhs"
                             else {"sign": int(sign)})},
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -462,7 +571,7 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0):
         flops, nbytes = work[name]
         warm = (" (share > 1: the operands came from L2)"
                 if bound_ms / ms > 1 else "")
-        what = (f"b={b}" if name == "hermite_rhs"
+        what = (f"b={b} sign={int(rhs_sign):+d}" if name == "hermite_rhs"
                 else f"sign={int(sign):+d}")
         phase("kernels", f"{name} at B={B} n={n} m={m} {what}: max|kernel-"
                          f"plain| {err:.3e} ({rel:.2e} rel); device time per "
@@ -1038,6 +1147,259 @@ def trace_phase(pcof, tgt, dev, smi):
                    + "; ".join(f"{name[:60]} {t:.2f} ms" for name, t in top))
 
 
+def gmres_phase(pcof, tgt, rows, start, dev, smi):
+    """The matrix-free route (``solver="gmres"``, diagonal preconditioner,
+    GMRES_ITERS Arnoldi steps): (a) the main path's configuration on the
+    segmented route, held against float64 LU, with launches by sign, s/call,
+    peak memory and stage residual; the autograd gradient of a short slice
+    through the transposed solves; (b) optimize_gate on the optimize
+    phase's setup; (c) a 512-level system whose stage matrices are not
+    built, single-device and level-sharded over a one-rank NCCL group."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.ops import stage_kernels as sk
+    from qgd_tpu_torch.parallel import make_tp_mesh, tp_forward_history
+    from qgd_tpu_torch.segmented import _segment_count
+
+    t_phase = time.perf_counter()
+    per_step = GMRES_ITERS + 1          # the initial residual and iters
+    gkw = dict(solver="gmres", gmres_iters=GMRES_ITERS,
+               preconditioner_type="diagonal", dtype="float32", device=dev)
+
+    # (a) the main path's configuration
+    prob = qt.cnot3_problem(nsteps=NSTEPS, **gkw)
+    controls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
+    n_auto = _segment_count(prob, 0, SCENARIOS)     # the automatic rule
+    passes = 1 if n_auto == NSTEPS else 2       # L > 1 re-forwards
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        (j1, g, _), grad = qt.segmented_objective_and_gradient(
+            prob, controls, pcof, tgt, ORDER)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        by_sign = sk.rhs_launches_by_sign()
+        lhs_n = sk.launch_counts()["hermite_lhs_matrix"]
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"-1": passes * NSTEPS * per_step, "+1": passes * NSTEPS}
+    check(by_sign == expected and lhs_n == 0,
+          f"gmres launches by sign {by_sign}, LHS {lhs_n} != {expected}, 0")
+    for row in rows:
+        if row["phase"] == "gmres":
+            row["launches"] = by_sign["-1"]
+            row["launches_per_call"] = by_sign["-1"]
+    check(bool(torch.isfinite(j1 + g).all() and torch.isfinite(grad).all()),
+          "gmres: finite objective and gradient")
+    k = 4
+    prob64 = qt.cnot3_problem(nsteps=NSTEPS, device=dev)    # f64, "lu"
+    (fj1, fg, _), fgrad = qt.segmented_objective_and_gradient(
+        prob64, controls, pcof[:k], tgt, ORDER)
+    d_obj, d_grad = _scenario_deltas((j1 + g)[:k], grad[:k], fj1 + fg,
+                                     fgrad)
+    res = qt.stage_residuals(prob, controls, pcof[:1], ORDER, sample=8)
+    phase("gmres", f"CNOT3 nsteps={NSTEPS} S={SCENARIOS} f32, GMRES("
+                   f"{GMRES_ITERS}) diagonal preconditioner, automatic "
+                   f"rule n_segments={n_auto}: seconds per call "
+                   f"{[round(t, 3) for t in secs]}, peak memory "
+                   f"{peak / 1e9:.3f} GB; RHS launches by sign {by_sign} "
+                   f"(per forward step 1 explicit half and {per_step} "
+                   f"operator applications), LHS launches {lhs_n}; "
+                   f"scenarios 0-3 vs the f64 lu route: |d obj| "
+                   f"{d_obj:.3e} (<= {F64_OBJ_TOL:g}), |d grad|/|grad| "
+                   f"{d_grad:.3e} (<= {F64_GRAD_TOL:g}); stage residual, "
+                   f"scenario 0, 8 probes: max {res['max']:.3e} mean "
+                   f"{res['mean']:.3e}; {smi}")
+    check(d_obj <= F64_OBJ_TOL and d_grad <= F64_GRAD_TOL,
+          "gmres: f32 route vs f64 lu route")
+    check(res["max"] <= RESIDUAL_LIMIT, "gmres: stage residual")
+    # host operations and device time of the GMRES forward step, profiled
+    # over GMRES_TRACE_STEPS steps of the same configuration
+    prob_t = qt.cnot3_problem(tf=prob.tf / NSTEPS * GMRES_TRACE_STEPS,
+                              nsteps=GMRES_TRACE_STEPS, **gkw)
+    top, nested, busy_ms, wall_ms = _profile_ops(
+        lambda: qt.eval_forward(prob_t, controls, pcof, ORDER))
+    per_trace = top / GMRES_TRACE_STEPS
+    phase("gmres", f"eval_forward, {GMRES_TRACE_STEPS} steps at S="
+                   f"{SCENARIOS}, torch.profiler on: {per_trace:.0f} "
+                   f"host-level aten operations per step "
+                   f"({nested / GMRES_TRACE_STEPS:.0f} with nested ones), "
+                   f"{per_trace / per_step:.1f} per operator "
+                   f"application; wall {wall_ms:.1f} ms, device kernels "
+                   f"{busy_ms:.1f} ms (busy {busy_ms / wall_ms:.3f}); {smi}")
+
+    # the autograd gradient of a GMRES_AD_STEPS slice: its backward solves
+    # the transposed stages by GMRES on the transposed stacks
+    prob_ad = qt.cnot3_problem(tf=prob.tf / NSTEPS * GMRES_AD_STEPS,
+                               nsteps=GMRES_AD_STEPS, **gkw)
+    pc = pcof.detach().clone().requires_grad_(True)
+    sk.reset_launch_counts()
+    with torch.enable_grad():
+        val = qt.objective_value(prob_ad, controls, pc, tgt, ORDER)
+        fwd = sk.rhs_launches_by_sign()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        (g_ad,) = torch.autograd.grad(val.sum(), pc)
+        torch.cuda.synchronize()
+        t_bwd = time.perf_counter() - t0
+    bwd = sk.rhs_launches_by_sign()
+    check(fwd == {"-1": GMRES_AD_STEPS * per_step, "+1": GMRES_AD_STEPS}
+          and bwd == {"-1": GMRES_AD_STEPS * per_step, "+1": 0},
+          f"gmres autograd launches forward {fwd}, backward {bwd}")
+    for row in rows:
+        if row["phase"] == "gmres_ad":
+            row["launches"] = bwd["-1"]
+            row["launches_per_call"] = bwd["-1"]
+    _, g_la = qt.objective_and_gradient(prob_ad, controls, pcof, tgt, ORDER)
+    d_ad = _scenario_deltas(val.detach(), g_ad, val.detach(), g_la)[1]
+    phase("gmres", f"autograd gradient, CNOT3 nsteps={GMRES_AD_STEPS} "
+                   f"S={SCENARIOS}: backward {t_bwd:.3f} s, transposed-stack "
+                   f"operator launches {bwd['-1']}; vs the Lagrange route "
+                   f"|d grad|/|grad| {d_ad:.3e} (<= {F64_GRAD_TOL:g}); {smi}")
+    check(d_ad <= F64_GRAD_TOL, "gmres: autograd vs Lagrange gradient")
+    del g_ad, val, pc
+
+    # (b) optimize_gate on the optimize phase's setup
+    prob_o, controls_o, pcof0, tgt_o = _optimize_setup(dev)
+    prob_o = dataclasses.replace(prob_o, solver="gmres",
+                                 gmres_iters=GMRES_OPT_BUDGET,
+                                 preconditioner_type="diagonal")
+    res_o = qt.stage_residuals(prob_o, controls_o, pcof0, ORDER, sample=8)
+    check(res_o["max"] <= RESIDUAL_LIMIT, "gmres optimize: stage residual")
+    sk.reset_launch_counts()
+    hist = qt.optimize_gate(prob_o, controls_o, pcof0, tgt_o, order=ORDER,
+                            pcof_L=-OPT_BOUND, pcof_U=OPT_BOUND,
+                            maxIter=GMRES_OPT_ITERS, print_level=0,
+                            ridge_penalty_strength=1e-2)
+    torch.cuda.synchronize()
+    n_eval = len(hist.obj_value)
+    by_sign = sk.rhs_launches_by_sign()
+    expected = {"-1": n_eval * OPT_NSTEPS * (GMRES_OPT_BUDGET + 1),
+                "+1": n_eval * OPT_NSTEPS}
+    check(by_sign == expected, f"gmres optimize launches {by_sign} != "
+                               f"{expected}")
+    for row in rows:
+        if row["phase"] == "gmres_optimize":
+            row["launches"] = by_sign["-1"]
+            row["launches_per_evaluation"] = by_sign["-1"] // n_eval
+    ev = np.diff([0.0] + hist.wall_time)
+    phase("gmres", f"optimize_gate, CNOT3 nsteps={OPT_NSTEPS}, 180 carrier "
+                   f"parameters, f32 GMRES({GMRES_OPT_BUDGET}) diagonal "
+                   f"(stage residual at the start, 8 probes: max "
+                   f"{res_o['max']:.3e}), L-BFGS-B "
+                   f"maxIter={GMRES_OPT_ITERS}: {n_eval} evaluations, "
+                   f"objective per evaluation "
+                   f"{[round(v, 9) for v in hist.obj_value]} (the Schulz "
+                   f"route's start {start['obj']:.9f}), seconds per "
+                   f"evaluation {[round(float(t), 3) for t in ev]} (median "
+                   f"{float(np.median(ev)):.3f} s; the Schulz plain route's "
+                   f"median {float(np.median(start['secs'])):.3f} s); RHS "
+                   f"launches by sign {by_sign}; {smi}")
+    check(n_eval > 1 and min(hist.obj_value[1:]) < hist.obj_value[0],
+          "gmres optimize: a later objective below the first")
+    check(abs(hist.obj_value[0] - start["obj"]) <= F64_OBJ_TOL,
+          "gmres optimize: the start objective is the Schulz route's")
+
+    # (c) a system whose stage matrices are not built
+    prob_l, controls_l = _large_problem(dev)
+    pc1 = pcof[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    h = qt.eval_forward(prob_l, controls_l, pc1, ORDER)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    by_sign = sk.rhs_launches_by_sign()
+    check(by_sign == {"-1": LARGE_NSTEPS * per_step, "+1": LARGE_NSTEPS},
+          f"large system launches {by_sign}")
+    for row in rows:
+        if row["phase"] == "gmres_large":
+            row["launches"] = by_sign["-1"]
+            row["launches_per_call"] = by_sign["-1"]
+    prob_l64, _ = _large_problem(dev, dtype="float64", solver="lu")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        h64 = qt.eval_forward(prob_l64, controls_l, pc1, ORDER)
+        torch.cuda.synchronize()
+        t64 = time.perf_counter() - t0
+    capped = any("hoisted stage precompute disabled" in str(w.message)
+                 for w in caught)
+    d_large = float((h.double() - h64).abs().max())
+    n2 = prob_l.real_system_size
+    state = n2 * 8 * 4
+    hoisted = 3 * OPT_NSTEPS * n2 * n2 * 4
+    gmres_5500 = peak + (OPT_NSTEPS - LARGE_NSTEPS) * state
+    port = _free_port()
+    group = make_tp_mesh(1, device=dev, init_method=f"tcp://localhost:{port}",
+                         rank=0)
+    try:
+        t0 = time.perf_counter()
+        h_tp = tp_forward_history(prob_l, controls_l, pc1, group, ORDER)
+        torch.cuda.synchronize()
+        t_tp = time.perf_counter() - t0
+    finally:
+        torch.distributed.destroy_process_group()
+    d_tp = float((h_tp - h).abs().max())
+    phase("gmres", f"512 levels (2N = {n2}, 8 columns), nsteps="
+                   f"{LARGE_NSTEPS}, dt=0.1, f32 GMRES({GMRES_ITERS}) "
+                   f"diagonal, S=1: {t_fwd:.3f} s, peak memory above the "
+                   f"problem {peak / 1e6:.1f} MB (at {OPT_NSTEPS} steps "
+                   f"{gmres_5500 / 1e9:.3f} GB with the longer history, where "
+                   f"the hoisted LU route would hold {hoisted / 1e9:.1f} GB "
+                   f"of f32 stage tensors); ring-kernel operator launches "
+                   f"{by_sign['-1']}, explicit halves {by_sign['+1']}; vs "
+                   f"the f64 lu route ({t64:.3f} s, hoisting capped: "
+                   f"{capped}) max |d w| {d_large:.3e} (<= "
+                   f"{LARGE_F64_TOL:g}); level-sharded on a one-rank NCCL "
+                   f"group {t_tp:.3f} s, vs single-device GMRES max |d w| "
+                   f"{d_tp:.3e} (<= {TP_TOL:g}); {smi}")
+    check(bool(torch.isfinite(h).all()) and h.shape == (LARGE_NSTEPS + 1,
+                                                        n2, 8),
+          "large system: finite history of the expected shape")
+    check(d_large <= LARGE_F64_TOL, "large system: f32 GMRES vs f64 lu")
+    check(d_tp <= TP_TOL, "large system: level-sharded vs single-device")
+    phase("gmres", f"phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+
+
+def _profile_ops(fn):
+    """``(host-level aten events, all aten events, device busy ms, wall
+    ms)`` of one ``fn()`` call under torch.profiler (after one warm call);
+    host-level: aten events without an aten parent."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    top = nested = 0
+    busy_ms = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_ms += e.time_range.elapsed_us() / 1e3
+        elif e.name.startswith("aten::"):
+            nested += 1
+            parent = e.cpu_parent
+            top += parent is None or not parent.name.startswith("aten::")
+    return top, nested, busy_ms, wall_ms
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_phase()
@@ -1049,9 +1411,7 @@ def main():
                             schulz_iters=48, schulz_warm_budget=0,
                             device=dev)
     controls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
-    pcof = torch.tensor(
-        np.random.default_rng(0).standard_normal((SCENARIOS, 60)) * 0.01,
-        dtype=torch.float64, device=dev)
+    pcof = _main_pcof(dev)
     rng = np.random.default_rng(1)
     tgt = rng.standard_normal((64, 8)) + 1j * rng.standard_normal((64, 8))
 
@@ -1063,6 +1423,7 @@ def main():
     lbfgs_phase(dev, smi)
     forced_phase(dev, smi)
     multistart_phase(dev, smi)
+    gmres_phase(pcof, tgt, rows, start, dev, smi)
     trace_phase(pcof, tgt, dev, smi)
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} was not launched by its "

@@ -7,9 +7,11 @@ What is ported: gate design end to end. The optimizer drivers
 Lagrange route (forward history, thinned or whole, adjoint sweep,
 ``objective_and_gradient``, ``discrete_adjoint``), the segmented route at
 any segment length and the prefix-product latency route, each with the
-``"lu"`` and ``"schulz"`` stage solvers, the forced, finite-difference and
-Hessian checks, the objective API, every control family with its own
-native de Boor library, the Rabi/CNOT2/CNOT3 problem builders, setup
+``"lu"`` and ``"schulz"`` stage solvers and the matrix-free ``"gmres"``
+solver with its three preconditioners (``parallel.tp_forward_history``
+shards its levels over a process group), the forced, finite-difference
+and Hessian checks, the objective API, every control family with its own
+native de Boor library, every problem builder of the JAX package, setup
 checkpoints and the stage-residual diagnostic. Control vectors are
 batched as a leading tensor dimension. The two Pallas kernels of
 ``qgd_tpu/ops/pallas_step.py`` are hand-written CUDA kernels here
@@ -36,6 +38,7 @@ from .problem import (  # noqa: E402
     schrodinger_problem_complex,
     problem_from_arrays,
     working_problem,
+    vector_problem,
 )
 from .ops.hermite import (  # noqa: E402
     hermite_coefficient,
@@ -131,6 +134,22 @@ from .diagnostics import stage_residuals  # noqa: E402
 from . import models  # noqa: E402
 from .models import (  # noqa: E402
     construct_rabi_prob,
+    construct_rand_prob,
+    dahlquist_problem,
+    rotating_frame_qubit,
+    DispersiveProblem,
+    JaynesCummingsProblem,
+    multi_qudit_hamiltonian_dispersive,
+    multi_qudit_hamiltonian_jayne,
+    control_ops,
+    lowering_operator_subsystem,
+    lowering_operator,
+    lowering_operators_system,
+    basis_state,
+    create_initial_conditions,
+    create_gate,
+    guard_projector,
+    rotation_matrix,
     cnot3_problem,
     cnot3_carrier_frequencies,
     cnot3_target,
@@ -145,6 +164,7 @@ __all__ = [
     "schrodinger_problem_complex",
     "problem_from_arrays",
     "working_problem",
+    "vector_problem",
     "hermite_coefficient",
     "hermite_coefficients",
     "assemble_generator_stack",
@@ -220,6 +240,22 @@ __all__ = [
     "stage_residuals",
     "models",
     "construct_rabi_prob",
+    "construct_rand_prob",
+    "dahlquist_problem",
+    "rotating_frame_qubit",
+    "DispersiveProblem",
+    "JaynesCummingsProblem",
+    "multi_qudit_hamiltonian_dispersive",
+    "multi_qudit_hamiltonian_jayne",
+    "control_ops",
+    "lowering_operator_subsystem",
+    "lowering_operator",
+    "lowering_operators_system",
+    "basis_state",
+    "create_initial_conditions",
+    "create_gate",
+    "guard_projector",
+    "rotation_matrix",
     "cnot3_problem",
     "cnot3_carrier_frequencies",
     "cnot3_target",

@@ -7,8 +7,8 @@ Format: ``<name>.setup.json`` (static metadata and control specs) plus
 round-trip generically: each field is a scalar, an array or a nested
 control, serialized by class name against the registry of the port's
 control classes (the same names and fields as the JAX package's, every
-family of it). Reading a JAX file, the port ignores problem fields it does
-not carry (the GMRES settings) and raises on a solver it lacks.
+family of it). The problem's static fields, the GMRES settings included,
+carry over both ways.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .controls.base import Control, as_control_tuple
-from .problem import SOLVERS, SchrodingerProblem, problem_from_arrays
+from .problem import SchrodingerProblem, problem_from_arrays
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +93,9 @@ _PROB_ARRAYS = ("system_sym", "system_asym", "sym_operators",
                 "asym_operators", "u0", "v0", "guard_subspace_projector",
                 "tf")
 _PROB_STATIC = ("nsteps", "N_ess_levels", "solver", "schulz_iters",
-                "schulz_warm_budget", "dtype", "hoist_batch_hint")
+                "schulz_warm_budget", "gmres_abstol", "gmres_reltol",
+                "gmres_iters", "preconditioner_type", "dtype",
+                "hoist_batch_hint")
 
 
 def problem_to_spec(prob: SchrodingerProblem, arrays: dict) -> dict:
@@ -109,10 +111,6 @@ def problem_from_spec(spec: dict, arrays: dict,
                       device="cuda") -> SchrodingerProblem:
     """The port's problem on ``device`` from a spec written by either
     package; fields the port does not carry are ignored."""
-    if spec.get("solver", "lu") not in SOLVERS:
-        raise NotImplementedError(
-            f"solver={spec['solver']!r}: the port has {SOLVERS} (the "
-            "matrix-free 'gmres' route is ROADMAP.md queue A item 13)")
     a = {k: arrays[f"prob.{k}"] for k in _PROB_ARRAYS}
     static = {k: spec[k] for k in _PROB_STATIC if k in spec}
     hint = static.pop("hoist_batch_hint", 1)

@@ -10,15 +10,20 @@ built in one batched call, and their factorizations (``solver="lu"``) or
 Newton-Schulz inverses (``solver="schulz"``). The plain route hoists the
 whole horizon as one segment when it fits (:func:`_use_precomputed_stages`);
 the thinned history (``eval_forward(save_every > 1)``) and the segmented
-route run one segment at a time.
+route run one segment at a time. ``solver="gmres"`` hoists nothing: each
+step solves its stage matrix-free (``ops.gmres``) from the Taylor guess,
+with the problem's preconditioner (``ops.preconditioners``), applying
+the stage operator to the whole state block at once.
 
 Kernel routing (``use_kernels=True``) follows the JAX package: the
 implicit-stage matrices go through the LHS kernel where JAX uses its
 Pallas kernel (f32, m >= 2, ``forward.py:135-148``; in the hoisted build
 that is one launch at batch S·T), and the explicit half of a step goes
 through the RHS kernel for f32 tensors (JAX computes that half with XLA
-ops). On the CPU the kernel wrappers run their plain versions;
-``use_kernels=False`` is the plain route everywhere.
+ops), as does every GMRES application of the stage operator (the RHS
+kernel at step sign -1, JAX's ``apply_lhs``). On the CPU the kernel
+wrappers run their plain versions; ``use_kernels=False`` is the plain
+route everywhere.
 """
 
 from __future__ import annotations
@@ -29,11 +34,13 @@ import warnings
 import torch
 
 from .controls import as_control_tuple, control_tables
+from .ops.gmres import hermite_gmres_stage
 from .ops.hermite import (
     assemble_generator_stack,
     scaled_derivatives,
     build_rhs,
     build_lhs,
+    taylor_expand,
 )
 from .ops.linalg import (
     schulz_inverse_auto,
@@ -95,9 +102,12 @@ def _use_precomputed_stages(prob, m: int) -> str | None:
     """Which state-independent work to hoist out of the step loop:
     ``"full"`` (stage matrices and their LU factors, ``solver="lu"``),
     ``"schulz"`` (stage matrices and their warm-started Newton-Schulz
-    inverses) or ``None`` (build each step's stage inside the loop) when
-    the hoisted tensors would exceed the cap. The estimate is multiplied by
+    inverses) or ``None``: build each step's stage inside the loop, when
+    the hoisted tensors would exceed the cap, or solve it matrix-free
+    (``solver="gmres"``, as in JAX). The estimate is multiplied by
     ``prob.hoist_batch_hint``, the number of scenarios batched."""
+    if prob.solver == "gmres":
+        return None
     n2 = prob.real_system_size
     itemsize = 4 if prob.dtype == "float32" else 8
     hint = max(int(prob.hoist_batch_hint), 1)
@@ -161,13 +171,30 @@ def _stage_matrices_both(prob, m: int, dt, P, Q):
     return build_rhs(D, dt, m), build_lhs(D, dt, m)
 
 
+def _rhs_kernel_applies(w_dtype, use_kernels: bool) -> bool:
+    """The explicit half of an f32 step goes through the RHS kernel."""
+    return use_kernels and w_dtype == torch.float32
+
+
 def _explicit_half(A_n, w, dt, m: int, use_kernels: bool = True):
     """``build_rhs(scaled_derivatives(A_n, w), dt)`` for ``A_n (S, m, n,
     n)``, ``w (S, n, b)``; through the RHS kernel for f32 tensors."""
-    if use_kernels and w.dtype == torch.float32:
+    if _rhs_kernel_applies(w.dtype, use_kernels):
         return hermite_rhs_kernel_call(A_n.contiguous(), w.contiguous(), dt,
                                        m)
     return build_rhs(scaled_derivatives(A_n, w, m), dt, m)
+
+
+def _make_preconditioner(prob, dt, order: int):
+    """The ``(apply, apply_T)`` pair of ``prob.preconditioner_type`` for the
+    GMRES stage solve, or ``None`` (another solver, or ``"identity"``).
+    ``prob`` is the problem as built (float64 operators), ``dt`` the float64
+    step."""
+    if prob.solver != "gmres" or prob.preconditioner_type == "identity":
+        return None
+    from .ops.preconditioners import PRECONDITIONERS
+
+    return PRECONDITIONERS[prob.preconditioner_type](prob, dt, order)
 
 
 def _drift_stage_inverse(prob, m: int, dt, transpose: bool = False):
@@ -215,7 +242,7 @@ def _hoisted_stage_pairs(prob, m: int, dt, P, Q):
 
 def _forward_segment_scan(prob, m: int, dt, P_l, Q_l, P_r, Q_r, w_start,
                           schulz_X0=None, use_kernels: bool = True,
-                          refine_iters=None):
+                          refine_iters=None, precond=None):
     """Propagate the scenario batch ``w_start (S, 2N, B)`` through one
     segment of ``L`` steps whose control tables are ``P_l, Q_l`` at the L
     left endpoints and ``P_r, Q_r`` at the L right endpoints, ``(S, L, m,
@@ -226,7 +253,16 @@ def _forward_segment_scan(prob, m: int, dt, P_l, Q_l, P_r, Q_r, w_start,
     LHS-kernel launch at batch S·L in f32), then their Newton-Schulz
     inverses (``solver="schulz"``, warm-started from ``schulz_X0``, the
     drift-only inverse) or LU factors (``"lu"``); each step then forms its
-    explicit half (RHS kernel in f32) and solves."""
+    explicit half (RHS kernel in f32) and solves. ``solver="gmres"`` builds
+    no stage matrix: each step solves by GMRES with ``precond``."""
+    if prob.solver == "gmres":
+        # the segment's tables at its L+1 time points (P_l[:, k+1] is
+        # P_r[:, k])
+        P = torch.cat([P_l[:, :1], P_r], dim=1)
+        Q = torch.cat([Q_l[:, :1], Q_r], dim=1)
+        return torch.stack([w_start, *_step_states(
+            prob, m, dt, P, Q, None, use_kernels, precond=precond,
+            w_start=w_start)], dim=1)
     M = _stage_matrices(prob, m, dt, P_r, Q_r, -1.0, use_kernels)
     if prob.solver == "schulz":
         X = _hoisted_inverses(prob, m, dt, M, X0=schulz_X0)
@@ -249,35 +285,48 @@ def _forward_segment_scan(prob, m: int, dt, P_l, Q_l, P_r, Q_r, w_start,
 
 
 def _hermite_step(prob, m: int, dt, w, pq_n, pq_np1, schulz_X0=None,
-                  use_kernels: bool = True, refine_iters=None):
+                  use_kernels: bool = True, refine_iters=None, precond=None):
     """One Hermite step ``w_n -> w_{n+1}`` for the batch ``w (S, n, b)``
     with control tables ``pq_* = (P, Q)`` of shape ``(S, m, N_ops)``.
     Returns ``(w_next, lhs, rhs)``: the solve's result and the system it
-    solved (the diagnostics measure its residual)."""
+    solved (the diagnostics measure its residual; ``lhs`` is ``None`` for
+    the matrix-free GMRES solve)."""
     A_n = assemble_generator_stack(prob, pq_n[0], pq_n[1], m)
     A_np1 = assemble_generator_stack(prob, pq_np1[0], pq_np1[1], m)
     return _step_from_stacks(prob, m, dt, w, A_n, A_np1, schulz_X0,
-                             use_kernels, refine_iters)
+                             use_kernels, refine_iters, precond=precond)
 
 
 def _step_from_stacks(prob, m: int, dt, w, A_n, A_np1, schulz_X0,
                       use_kernels: bool, refine_iters,
-                      forcing_n=None, forcing_np1=None):
+                      forcing_n=None, forcing_np1=None, precond=None):
     """One step from the generator stacks at both ends, with the stage
-    built and solved in the step (LHS kernel, then Schulz or LU). The
-    optional ``forcing_*`` ``(S, m, n, b)`` enter both halves; the forced
-    explicit half is plain torch (the RHS kernel has no forcing term)."""
-    if forcing_n is None:
+    built and solved in the step (LHS kernel, then Schulz or LU), or
+    solved by GMRES (``precond``: its preconditioner pair). The optional
+    ``forcing_*`` ``(S, m, n, b)`` enter both halves; the forced explicit
+    half is plain torch (the RHS kernel has no forcing term)."""
+    gmres = prob.solver == "gmres"
+    Ws = None
+    if forcing_n is not None or gmres:   # GMRES starts from their Taylor sum
+        Ws = scaled_derivatives(A_n, w, m, forcing=forcing_n)
+    if forcing_n is None and (Ws is None or
+                              _rhs_kernel_applies(w.dtype, use_kernels)):
         rhs = _explicit_half(A_n, w, dt, m, use_kernels)
     else:
-        rhs = build_rhs(scaled_derivatives(A_n, w, m, forcing=forcing_n),
-                        dt, m)
+        rhs = build_rhs(Ws, dt, m)
     if forcing_np1 is not None:
         # derivatives at t_{n+1} are affine in w_{n+1}: move the forced
         # zero-state part to the right-hand side
         G = scaled_derivatives(A_np1, torch.zeros_like(w), m,
                                forcing=forcing_np1)
         rhs = rhs - build_lhs(G, dt, m)
+    if gmres:
+        # the reference's Taylor initial guess
+        w_next = hermite_gmres_stage(A_np1, rhs, taylor_expand(Ws, dt, m),
+                                     dt, m, iters=prob.gmres_iters,
+                                     precond=precond,
+                                     use_kernels=use_kernels)
+        return w_next, None, rhs
     lhs = _stage_from_stack(A_np1, m, dt, -1.0, use_kernels)
     if prob.solver == "schulz":
         X = schulz_inverse_auto(lhs, prob.schulz_iters, X0=schulz_X0,
@@ -287,32 +336,36 @@ def _step_from_stacks(prob, m: int, dt, w, A_n, A_np1, schulz_X0,
 
 
 def _step_states(prob, m: int, dt, P, Q, schulz_X0, use_kernels: bool = True,
-                 refine_iters=None, forcing=None):
-    """Propagate ``prob.w0`` through all ``T = prob.nsteps`` steps for the
-    scenario batch of tables ``P, Q (S, T+1, m, N_ops)`` (work dtype),
-    every stage built inside the loop, and yield the states ``w_1 .. w_T``
-    ``(S, 2N, B)``. ``forcing``, if given, is ``(S, T+1, m, 2N, B)``. Each
-    time point's generator stack is assembled once and serves as the
-    implicit side of one step and the explicit side of the next. A
+                 refine_iters=None, forcing=None, precond=None,
+                 w_start=None):
+    """Propagate ``w_start`` (default ``prob.w0``) through the ``T`` steps
+    of the scenario batch of tables ``P, Q (S, T+1, m, N_ops)`` (work
+    dtype), every stage built or solved inside the loop, and yield the
+    states ``w_1 .. w_T`` ``(S, 2N, B)``. ``forcing``, if given, is ``(S,
+    T+1, m, 2N, B)``. Each time point's generator stack is assembled once
+    and serves as the implicit side of one step and the explicit side of
+    the next. A
     generator, so that each caller stores the states as it needs: a
     preallocated trajectory, or a list stacked at the end where autograd
     records the loop (slice writes would copy the whole trajectory's
     gradient once per step on the way back)."""
-    w = prob.w0.expand(P.shape[0], -1, -1)
+    w = prob.w0.expand(P.shape[0], -1, -1) if w_start is None else w_start
     A_n = assemble_generator_stack(prob, P[:, 0], Q[:, 0], m)
-    for k in range(prob.nsteps):
+    for k in range(P.shape[1] - 1):
         A_np1 = assemble_generator_stack(prob, P[:, k + 1], Q[:, k + 1], m)
         f_n = f_np1 = None
         if forcing is not None:
             f_n, f_np1 = forcing[:, k], forcing[:, k + 1]
         w, _, _ = _step_from_stacks(prob, m, dt, w, A_n, A_np1, schulz_X0,
-                                    use_kernels, refine_iters, f_n, f_np1)
+                                    use_kernels, refine_iters, f_n, f_np1,
+                                    precond)
         yield w
         A_n = A_np1
 
 
 def _forward_trajectory(prob, m: int, dt, P, Q, schulz_X0,
-                        use_kernels: bool = True, refine_iters=None):
+                        use_kernels: bool = True, refine_iters=None,
+                        precond=None):
     """The trajectory ``(S, T+1, 2N, B)`` of :func:`_step_states`, written
     into one preallocated tensor (the segmented route at L = 1)."""
     w0 = prob.w0.expand(P.shape[0], -1, -1)
@@ -320,7 +373,8 @@ def _forward_trajectory(prob, m: int, dt, P, Q, schulz_X0,
                        dtype=w0.dtype, device=w0.device)
     traj[:, 0] = w0
     for k, w in enumerate(_step_states(prob, m, dt, P, Q, schulz_X0,
-                                       use_kernels, refine_iters), 1):
+                                       use_kernels, refine_iters,
+                                       precond=precond), 1):
         traj[:, k] = w
     return traj
 
@@ -359,10 +413,11 @@ def hermite_forward_history(prob, controls, pcof, order: int = 2,
     controls = as_control_tuple(controls)
     m = order // 2
     pcof, single = _scenario_pcof(prob, pcof)
-    wprob, _, dt, P, Q = _working_tables(prob, controls, pcof, m)
+    wprob, dt64, dt, P, Q = _working_tables(prob, controls, pcof, m)
     w = wprob.w0.expand(P.shape[0], -1, -1)
     X0 = (_drift_stage_inverse(wprob, m, dt)
           if prob.solver == "schulz" else None)
+    precond = _make_preconditioner(prob, dt64, order)
     if forcing is None and _use_precomputed_stages(wprob, m):
         # the whole horizon as one segment: every stage hoisted
         hist = _forward_segment_scan(wprob, m, dt, P[:, :-1], Q[:, :-1],
@@ -374,8 +429,8 @@ def hermite_forward_history(prob, controls, pcof, order: int = 2,
             forcing = forcing.expand((P.shape[0],)
                                      + tuple(forcing.shape[-4:]))
         hist = torch.stack([w, *_step_states(wprob, m, dt, P, Q, X0,
-                                             use_kernels, forcing=forcing)],
-                           dim=1)
+                                             use_kernels, forcing=forcing,
+                                             precond=precond)], dim=1)
     return hist[0] if single else hist
 
 
@@ -388,16 +443,18 @@ def _thinned_forward_history(prob, controls, pcof, order: int,
     (:func:`_forward_segment_scan`), of which only the last state is kept,
     so O(save_every) states are alive at a time."""
     m = order // 2
-    wprob, _, dt, P, Q = _working_tables(prob, controls, pcof, m)
+    wprob, dt64, dt, P, Q = _working_tables(prob, controls, pcof, m)
     X0 = (_drift_stage_inverse(wprob, m, dt)
           if prob.solver == "schulz" else None)
+    precond = _make_preconditioner(prob, dt64, order)
     w = wprob.w0.expand(P.shape[0], -1, -1)
     saved = [w]
     for a in range(0, prob.nsteps, save_every):
         b = a + save_every
         w = _forward_segment_scan(wprob, m, dt, P[:, a:b], Q[:, a:b],
                                   P[:, a + 1:b + 1], Q[:, a + 1:b + 1], w,
-                                  X0, use_kernels, refine_iters)[:, -1]
+                                  X0, use_kernels, refine_iters,
+                                  precond)[:, -1]
         saved.append(w)
     return torch.stack(saved, dim=1)
 

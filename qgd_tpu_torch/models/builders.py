@@ -1,6 +1,6 @@
 """Problem and gate builders (numpy, setup time): copies of the
-``qgd_tpu.models.builders`` functions the ported path needs, returning the
-port's :class:`~qgd_tpu_torch.problem.SchrodingerProblem`.
+``qgd_tpu.models.builders`` functions, returning the port's
+:class:`~qgd_tpu_torch.problem.SchrodingerProblem`.
 
 They are copied rather than imported because importing anything under
 ``qgd_tpu`` imports JAX. The arithmetic is line for line the same, so the
@@ -13,13 +13,24 @@ import itertools
 
 import numpy as np
 
-from ..problem import SchrodingerProblem, schrodinger_problem_complex
+from ..problem import (
+    SchrodingerProblem,
+    schrodinger_problem,
+    schrodinger_problem_complex,
+)
 
 
 def lowering_operator_subsystem(subsystem_size: int) -> np.ndarray:
     """``a`` for one subsystem: ``sqrt(diag(1..n-1, k=1))``."""
     return np.sqrt(np.diag(np.arange(1, subsystem_size, dtype=np.float64),
                            k=1))
+
+
+def lowering_operator(subsystem_size: int) -> np.ndarray:
+    """The single-subsystem lowering operator under the name
+    ``rotating_frame_qubit`` uses (the reference exports the name without
+    defining it)."""
+    return lowering_operator_subsystem(subsystem_size)
 
 
 def lowering_operators_system(subsystem_sizes) -> list[np.ndarray]:
@@ -142,6 +153,32 @@ def multi_qudit_hamiltonian_dispersive(subsystem_sizes, transition_freqs,
     return H
 
 
+def multi_qudit_hamiltonian_jayne(subsystem_sizes, transition_freqs,
+                                  rotation_freq, kerr_coeffs,
+                                  jayne_cummings_coeffs) -> np.ndarray:
+    """Dispersive drift plus the Jaynes-Cummings couplings ``sum_{p>q}
+    J_pq (a'_q a_p + a_q a'_p)``, with one common rotation frequency so
+    the drift stays time-independent."""
+    kerr = np.asarray(kerr_coeffs, dtype=np.float64)
+    jc = np.asarray(jayne_cummings_coeffs, dtype=np.float64)
+    if not np.allclose(kerr, kerr.T):
+        raise ValueError("kerr_coeffs must be symmetric")
+    if not np.allclose(jc, jc.T):
+        raise ValueError("jayne_cummings_coeffs must be symmetric")
+    if not np.allclose(np.diag(jc), 0.0):
+        raise ValueError("jayne_cummings_coeffs must have a zero diagonal")
+    H = multi_qudit_hamiltonian_dispersive(
+        subsystem_sizes, transition_freqs,
+        [rotation_freq] * len(subsystem_sizes), kerr).astype(np.complex128)
+    a_ops = lowering_operators_system(subsystem_sizes)
+    Q = len(subsystem_sizes)
+    for q in range(Q):
+        for p in range(q + 1, Q):
+            a_q, a_p = a_ops[q], a_ops[p]
+            H += jc[p, q] * (a_q.conj().T @ a_p + a_q @ a_p.conj().T)
+    return H
+
+
 def control_ops(subsystem_sizes):
     """Per-subsystem control operator pairs ``(a + a', a - a')``."""
     a_ops = lowering_operators_system(subsystem_sizes)
@@ -167,6 +204,25 @@ def DispersiveProblem(subsystem_sizes, essential_subsystem_sizes,
         H, sym_ops, asym_ops, U0, tf, nsteps, n_ess, W, **kwargs)
 
 
+def JaynesCummingsProblem(subsystem_sizes, essential_subsystem_sizes,
+                          transition_freqs, rotation_freq, kerr_coeffs,
+                          jayne_cummings_coeffs, tf, nsteps,
+                          **kwargs) -> SchrodingerProblem:
+    """Jaynes-Cummings gate-design problem. The reference's version passes
+    undefined initial conditions; as in the JAX package, the essential
+    basis states are used, as :func:`DispersiveProblem` does. ``kwargs``
+    as for :func:`DispersiveProblem`."""
+    H = multi_qudit_hamiltonian_jayne(
+        subsystem_sizes, transition_freqs, rotation_freq, kerr_coeffs,
+        jayne_cummings_coeffs)
+    sym_ops, asym_ops = control_ops(subsystem_sizes)
+    W = guard_projector(subsystem_sizes, essential_subsystem_sizes)
+    U0 = create_initial_conditions(subsystem_sizes, essential_subsystem_sizes)
+    n_ess = int(np.prod(essential_subsystem_sizes))
+    return schrodinger_problem_complex(
+        H, sym_ops, asym_ops, U0, tf, nsteps, n_ess, W, **kwargs)
+
+
 def construct_rabi_prob(tf=np.pi, nsteps=100, **kwargs) -> SchrodingerProblem:
     """2-level Rabi oscillator, zero drift, one control pair; for duration
     ``pi`` an amplitude |Omega| = 0.5 pulse is a SWAP gate. ``kwargs`` as
@@ -177,6 +233,72 @@ def construct_rabi_prob(tf=np.pi, nsteps=100, **kwargs) -> SchrodingerProblem:
     return schrodinger_problem_complex(
         H, [a + a.T], [a - a.T], np.eye(2, dtype=np.complex128),
         tf, nsteps, 2, **kwargs)
+
+
+def _rand_sym(rng, n):
+    m = rng.random((n, n))
+    return m + m.T
+
+
+def _rand_asym(rng, n):
+    m = rng.random((n, n))
+    return m - m.T
+
+
+def construct_rand_prob(complex_system_size, N_operators, tf=2.0, nsteps=100,
+                        seed: int = 0, **kwargs) -> SchrodingerProblem:
+    """Seeded random problem: one numpy PCG64 stream seeded by ``seed``
+    draws the initial states, the drift and the control operators, in the
+    JAX package's order, so both packages build the same arrays."""
+    n = int(complex_system_size)
+    rng = np.random.default_rng(seed)
+    re = rng.random((n, n))
+    im = rng.random((n, n))
+    U0 = re + 1j * im
+    H = _rand_sym(rng, n) + 1j * _rand_asym(rng, n)
+    sym_ops = [_rand_sym(rng, n) for _ in range(N_operators)]
+    asym_ops = [_rand_asym(rng, n) for _ in range(N_operators)]
+    return schrodinger_problem_complex(
+        H, sym_ops, asym_ops, U0, tf, nsteps, n, **kwargs)
+
+
+def dahlquist_problem(lam, initial_condition=1.0, with_control: bool = False,
+                      tf=1.0, nsteps=10, **kwargs) -> SchrodingerProblem:
+    """1x1 problem ``y' = lambda y`` with purely imaginary ``lambda``.
+    ``kwargs`` as for :func:`DispersiveProblem`."""
+    lam = complex(lam)
+    H = 1j * lam  # hermitian iff lam purely imaginary
+    if abs(H.imag) > 1e-14:
+        raise ValueError("lambda must be purely imaginary for a Hermitian H")
+    u0 = np.array([[np.real(initial_condition)]])
+    v0 = np.array([[np.imag(initial_condition)]])
+    if with_control:
+        sym_ops, asym_ops = [np.ones((1, 1))], [np.zeros((1, 1))]
+    else:
+        sym_ops, asym_ops = [], []
+    return schrodinger_problem(
+        np.array([[H.real]]), np.array([[0.0]]), sym_ops, asym_ops,
+        u0, v0, tf, nsteps, 1, **kwargs)
+
+
+def rotating_frame_qubit(N_ess_levels, N_guard_levels, tf=1.0, nsteps=10,
+                         detuning_frequency=1.0, self_kerr_coefficient=1.0,
+                         **kwargs) -> SchrodingerProblem:
+    """One qudit in the rotating frame with detuning and self-Kerr, one
+    control pair, the essential basis states as initial conditions.
+    ``kwargs`` as for :func:`DispersiveProblem`."""
+    n_tot = N_ess_levels + N_guard_levels
+    a = lowering_operator_subsystem(n_tot)
+    num = a.T @ a
+    K = (2 * np.pi * detuning_frequency) * num \
+        - (0.5 * 2 * np.pi * self_kerr_coefficient) * (a.T @ a.T @ a @ a)
+    u0 = np.zeros((n_tot, N_ess_levels))
+    v0 = np.zeros((n_tot, N_ess_levels))
+    for i in range(N_ess_levels):
+        u0[i, i] = 1.0
+    return schrodinger_problem(
+        K, np.zeros_like(K), [a + a.T], [a - a.T], u0, v0, tf, nsteps,
+        N_ess_levels, **kwargs)
 
 
 _CNOT3_FREQS_GHZ = (4.10336, 4.81831, 7.8447)

@@ -15,10 +15,13 @@ version, an ``autograd.Function`` and a launch counter.
 * :func:`hermite_rhs_kernel_call` replaces the Pallas kernel
   ``qgd_tpu/ops/pallas_step.py:91`` (``hermite_rhs_kernel_call``):
   ``A_stack (B, m, n, n)``, ``W (B, n, b)``, scalar ``dt`` -> ``(B, n, b)``
-  explicit half ``sum_j dt^j c_j W_j``. HBM-bound (2*b FLOP per element
-  of the stack); one launch per call requests the whole stack at once,
-  stages ``A_0`` in shared memory, streams the rest from L2 and keeps the
-  state levels in shared memory.
+  ``sum_j (sign*dt)^j c_j W_j`` of the recursion on ``W``: the explicit
+  half of a step at ``sign = +1`` (the Pallas kernel's only sign), the
+  implicit stage applied to ``W`` at ``sign = -1`` (the GMRES operator).
+  HBM-bound (2*b FLOP per element of the stack); one launch per call
+  requests the whole stack at once, stages ``A_0`` in shared memory,
+  streams the rest from L2 and keeps the state levels in shared memory
+  (n <= 128; larger n streams the stack through a ring of tiles).
 
 The kernels compute the step scales ``(sign*dt)^(k+1)`` themselves (f32,
 as ``qgd_tpu.ops.pallas_step._scaled_stack``) and multiply each stack
@@ -37,8 +40,8 @@ JAX.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``: one
 per call that launches the kernel, added where it launches and nowhere
-else; the LHS wrapper also counts them by step sign
-(:func:`lhs_launches_by_sign`). Reset the counters
+else; each also counts them by step sign (:func:`lhs_launches_by_sign`,
+:func:`rhs_launches_by_sign`). Reset the counters
 (:func:`reset_launch_counts`) just before the run they should
 attribute.
 """
@@ -79,12 +82,13 @@ def lhs_matrix_plain(A_stack: torch.Tensor, dt, m: int,
                      d if sign == -1.0 else -d, m)
 
 
-def rhs_plain(A_stack: torch.Tensor, W: torch.Tensor, dt,
-              m: int) -> torch.Tensor:
-    """``(B, m, n, n)``, ``(B, n, b)`` -> ``(B, n, b)``: ``sum_j dt^j c_j
-    W_j`` of the recursion on ``W``, in ``W.dtype``."""
+def rhs_plain(A_stack: torch.Tensor, W: torch.Tensor, dt, m: int,
+              sign: float = 1.0) -> torch.Tensor:
+    """``(B, m, n, n)``, ``(B, n, b)`` -> ``(B, n, b)``: ``sum_j
+    (sign*dt)^j c_j W_j`` of the recursion on ``W``, in ``W.dtype``."""
+    d = torch.as_tensor(dt, dtype=W.dtype, device=W.device)
     return build_rhs(scaled_derivatives(A_stack, W, m),
-                     torch.as_tensor(dt, dtype=W.dtype, device=W.device), m)
+                     d if sign == 1.0 else -d, m)
 
 
 # --------------------------------------------------------------------------
@@ -166,8 +170,8 @@ def _launch_lhs(A_stack: torch.Tensor, dt, m: int,
     return out
 
 
-def _launch_rhs(A_stack: torch.Tensor, W: torch.Tensor, dt,
-                m: int) -> torch.Tensor:
+def _launch_rhs(A_stack: torch.Tensor, W: torch.Tensor, dt, m: int,
+                sign: float = 1.0) -> torch.Tensor:
     from .cuda_build import load_library
 
     if A_stack.device.type != "cuda":
@@ -190,10 +194,11 @@ def _launch_rhs(A_stack: torch.Tensor, W: torch.Tensor, dt,
         out = torch.empty((B, n, b), dtype=torch.float32, device=dev)
         err = lib.hermite_rhs_f32(
             A_stack.data_ptr(), None if dt_t is None else dt_t.data_ptr(),
-            dt_value, 1.0, W.data_ptr(), out.data_ptr(), _coeffs_arg(m),
+            dt_value, sign, W.data_ptr(), out.data_ptr(), _coeffs_arg(m),
             B, m, n, b, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hermite_rhs_f32", f"B={B}, m={m}, n={n}, b={b}")
     hermite_rhs_kernel_call.launches += 1
+    hermite_rhs_kernel_call.launches_by_sign[sign] += 1
     return out
 
 
@@ -257,12 +262,12 @@ class HermiteRHS(torch.autograd.Function):
     jvp = staticmethod(_no_forward_rule)
 
     @staticmethod
-    def forward(ctx, A_stack, W, dt, m):
-        ctx.m = m
+    def forward(ctx, A_stack, W, dt, m, sign=1.0):
+        ctx.m, ctx.sign = m, sign
         ctx.save_for_backward(A_stack, W, _save_dt(ctx, dt))
         if A_stack.device.type == "cuda":
-            return _launch_rhs(A_stack, W, dt, m)
-        return rhs_plain(A_stack, W, dt, m)
+            return _launch_rhs(A_stack, W, dt, m, sign)
+        return rhs_plain(A_stack, W, dt, m, sign)
 
     @staticmethod
     def backward(ctx, g):
@@ -272,10 +277,11 @@ class HermiteRHS(torch.autograd.Function):
             w = W.detach().requires_grad_(True)
             d, want_dt = _dt_input(ctx, dt_t, 2)
             inputs = [a, w, d] if want_dt else [a, w]
-            out = rhs_plain(a, w, d, ctx.m)
+            out = rhs_plain(a, w, d, ctx.m, ctx.sign)
             grads = torch.autograd.grad(out, inputs, g.to(out.dtype))
         ddt = grads[2].to(dt_t.dtype) if want_dt else None
-        return grads[0].to(A_stack.dtype), grads[1].to(W.dtype), ddt, None
+        return (grads[0].to(A_stack.dtype), grads[1].to(W.dtype), ddt, None,
+                None)
 
 
 # --------------------------------------------------------------------------
@@ -294,13 +300,27 @@ def hermite_lhs_matrix_kernel_call(A_stack: torch.Tensor, dt, m: int,
 
 
 def hermite_rhs_kernel_call(A_stack: torch.Tensor, W: torch.Tensor, dt,
-                            m: int) -> torch.Tensor:
+                            m: int, sign: float = 1.0) -> torch.Tensor:
     """``A_stack (B, m, n, n)``, ``W (B, n, b)``, scalar ``dt`` ->
-    ``(B, n, b)`` explicit half ``sum_j dt^j c_j W_j``. CPU: plain
-    version. CUDA: the kernel."""
+    ``(B, n, b)`` ``sum_j (sign*dt)^j c_j W_j`` (sign +1: the explicit
+    half, -1: the implicit stage applied to ``W``). CPU: plain version.
+    CUDA: the kernel."""
+    sign = _check_sign(sign)
     if A_stack.device.type == "cpu":
-        return rhs_plain(A_stack, W, dt, m)
-    return HermiteRHS.apply(A_stack, W, dt, m)
+        return rhs_plain(A_stack, W, dt, m, sign)
+    return HermiteRHS.apply(A_stack, W, dt, m, sign)
+
+
+def hermite_rhs_kernel_launch(A_stack: torch.Tensor, W: torch.Tensor, dt,
+                              m: int, sign: float = 1.0) -> torch.Tensor:
+    """:func:`hermite_rhs_kernel_call` without its ``autograd.Function``,
+    for callers that record no gradient through the result (the Arnoldi
+    steps of the GMRES stage solve): the kernel on CUDA tensors, counted
+    as every launch is; the plain version on the CPU."""
+    sign = _check_sign(sign)
+    if A_stack.device.type == "cpu":
+        return rhs_plain(A_stack, W, dt, m, sign)
+    return _launch_rhs(A_stack, W, dt, m, sign)
 
 
 def reset_launch_counts():
@@ -308,6 +328,7 @@ def reset_launch_counts():
     hermite_lhs_matrix_kernel_call.launches = 0
     hermite_lhs_matrix_kernel_call.launches_by_sign = {-1.0: 0, 1.0: 0}
     hermite_rhs_kernel_call.launches = 0
+    hermite_rhs_kernel_call.launches_by_sign = {-1.0: 0, 1.0: 0}
 
 
 reset_launch_counts()
@@ -322,4 +343,11 @@ def launch_counts() -> dict:
 def lhs_launches_by_sign() -> dict:
     """LHS-kernel launches by step sign: ``{"-1": n, "+1": n}``."""
     by = hermite_lhs_matrix_kernel_call.launches_by_sign
+    return {"-1": by[-1.0], "+1": by[1.0]}
+
+
+def rhs_launches_by_sign() -> dict:
+    """RHS-kernel launches by step sign: ``{"-1": n, "+1": n}`` (+1: the
+    explicit halves, -1: GMRES operator applications)."""
+    by = hermite_rhs_kernel_call.launches_by_sign
     return {"-1": by[-1.0], "+1": by[1.0]}

@@ -4,8 +4,9 @@ A frozen dataclass of tensors on one device, the card unless the caller
 passes ``device="cpu"``. Only the fields the ported objective + gradient
 path reads are carried: the split drift and control operators, the
 initial conditions, the guard projector, ``tf`` and the static solver
-settings (``solver`` ``"lu"`` or ``"schulz"``, ``schulz_iters``,
-``schulz_warm_budget``, ``dtype``, ``hoist_batch_hint``).
+settings (``solver`` ``"lu"``, ``"schulz"`` or ``"gmres"``,
+``schulz_iters``, ``schulz_warm_budget``, the GMRES budget, tolerances
+and preconditioner, ``dtype``, ``hoist_batch_hint``).
 
 State representation is the real-stacked ``w = [u; v]`` of the reference
 (``A = [[S, K], [-K, S]]`` with ``K = Re(H)``, ``S = Im(H)``); see
@@ -50,6 +51,14 @@ class SchrodingerProblem:
     # schulz_iters, 0 = solve every stage by refinement sweeps
     # preconditioned with the one drift-only inverse).
     schulz_warm_budget: int = -1
+    # solver="gmres": the fixed Arnoldi budget per stage solve, the
+    # preconditioner ("identity", "lu" or "diagonal", ops/preconditioners)
+    # and the requested tolerances, which the fixed-budget solver does not
+    # iterate to: diagnostics.stage_residuals checks them and warns.
+    gmres_abstol: float = 1e-10
+    gmres_reltol: float = 1e-10
+    gmres_iters: int = 20
+    preconditioner_type: str = "identity"
     # Propagation dtype: "float64" or "float32" (objectives reduce in f64).
     dtype: str = "float64"
     # How many scenario copies of the hoisted per-step stage tensors coexist
@@ -88,8 +97,31 @@ class SchrodingerProblem:
         """Real-stacked initial states, shape (2N, N_ic)."""
         return torch.cat([self.u0, self.v0], dim=0)
 
+    def __repr__(self) -> str:
+        """Sizes, grid and solver settings (the JAX package's summary)."""
+        N = self.N_tot_levels
+        guard_rank = int(torch.count_nonzero(torch.diagonal(
+            self.guard_subspace_projector))) // 2
+        dt = self.tf / self.nsteps
+        solver = f"  solver = {self.solver!r}, dtype = {self.dtype!r}"
+        if self.solver == "schulz":
+            solver += f", schulz_iters = {self.schulz_iters}"
+        if self.solver == "gmres":
+            solver += (f", gmres_iters = {self.gmres_iters}, "
+                       f"preconditioner = {self.preconditioner_type!r}")
+        return "\n".join([
+            "SchrodingerProblem:",
+            f"  levels: {N} total, {self.N_ess_levels} essential, "
+            f"{guard_rank} guarded (real system size {2 * N})",
+            f"  control operators: {self.N_operators}  |  initial "
+            f"conditions: {self.N_initial_conditions}",
+            f"  tf = {self.tf:g}, nsteps = {self.nsteps}, dt = {dt:g}",
+            solver,
+            f"  device = {self.device}"])
 
-SOLVERS = ("lu", "schulz")
+
+SOLVERS = ("lu", "schulz", "gmres")
+PRECONDITIONERS = ("identity", "lu", "diagonal")
 
 _ARRAY_FIELDS = ("system_sym", "system_asym", "sym_operators",
                  "asym_operators", "u0", "v0", "guard_subspace_projector")
@@ -148,6 +180,9 @@ def schrodinger_problem(system_sym, system_asym, sym_operators,
                         N_ess_levels: int, guard_subspace_projector=None, *,
                         solver: str = "lu", schulz_iters: int = 56,
                         schulz_warm_budget: int = -1,
+                        gmres_abstol: float = 1e-10,
+                        gmres_reltol: float = 1e-10, gmres_iters: int = 20,
+                        preconditioner_type: str = "identity",
                         dtype: str = "float64",
                         device="cuda") -> SchrodingerProblem:
     """Build a validated :class:`SchrodingerProblem` from real split
@@ -184,9 +219,10 @@ def schrodinger_problem(system_sym, system_asym, sym_operators,
     if dtype not in ("float64", "float32"):
         raise ValueError(f"dtype must be 'float64' or 'float32', got {dtype!r}")
     if solver not in SOLVERS:
-        raise NotImplementedError(
-            f"solver={solver!r}: the port has {SOLVERS} (the matrix-free "
-            "'gmres' route is ROADMAP.md queue A item 13)")
+        raise ValueError(f"solver={solver!r}: expected one of {SOLVERS}")
+    if preconditioner_type not in PRECONDITIONERS:
+        raise ValueError(f"preconditioner_type={preconditioner_type!r}: "
+                         f"expected one of {PRECONDITIONERS}")
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -208,6 +244,10 @@ def schrodinger_problem(system_sym, system_asym, sym_operators,
         solver=solver,
         schulz_iters=int(schulz_iters),
         schulz_warm_budget=int(schulz_warm_budget),
+        gmres_abstol=float(gmres_abstol),
+        gmres_reltol=float(gmres_reltol),
+        gmres_iters=int(gmres_iters),
+        preconditioner_type=preconditioner_type,
         dtype=dtype,
     )
 
@@ -230,15 +270,13 @@ def schrodinger_problem_complex(system_hamiltonian, sym_operators,
 
 
 def problem_from_arrays(arrays: dict, *, nsteps: int, N_ess_levels: int,
-                        solver: str = "lu", schulz_iters: int = 56,
-                        schulz_warm_budget: int = -1,
-                        dtype: str = "float64",
-                        device="cuda") -> SchrodingerProblem:
+                        device="cuda", **settings) -> SchrodingerProblem:
     """Carry a problem across from its array fields, given as numpy:
     ``system_sym``, ``system_asym``, ``sym_operators``, ``asym_operators``,
     ``u0``, ``v0``, ``guard_subspace_projector`` and ``tf``, plus the static
-    fields as keywords. Returns the port's problem on ``device`` (the card
-    by default, as :func:`schrodinger_problem`)."""
+    fields as keywords (``settings``: the solver settings and ``dtype`` that
+    :func:`schrodinger_problem` takes). Returns the port's problem on
+    ``device`` (the card by default, as :func:`schrodinger_problem`)."""
     missing = [k for k in _ARRAY_FIELDS + ("tf",) if k not in arrays]
     if missing:
         raise KeyError(f"problem_from_arrays: missing fields {missing}")
@@ -246,9 +284,8 @@ def problem_from_arrays(arrays: dict, *, nsteps: int, N_ess_levels: int,
     return schrodinger_problem(
         a["system_sym"], a["system_asym"], a["sym_operators"],
         a["asym_operators"], a["u0"], a["v0"], float(np.asarray(arrays["tf"])),
-        nsteps, N_ess_levels, a["guard_subspace_projector"], solver=solver,
-        schulz_iters=schulz_iters, schulz_warm_budget=schulz_warm_budget,
-        dtype=dtype, device=device)
+        nsteps, N_ess_levels, a["guard_subspace_projector"], device=device,
+        **settings)
 
 
 def working_problem(prob: SchrodingerProblem) -> SchrodingerProblem:
@@ -265,4 +302,14 @@ def working_problem(prob: SchrodingerProblem) -> SchrodingerProblem:
         asym_operators=c(prob.asym_operators),
         u0=c(prob.u0),
         v0=c(prob.v0),
+    )
+
+
+def vector_problem(prob: SchrodingerProblem,
+                   ic_index: int) -> SchrodingerProblem:
+    """The problem with the single initial-condition column ``ic_index``."""
+    return dataclasses.replace(
+        prob,
+        u0=prob.u0[:, ic_index:ic_index + 1],
+        v0=prob.v0[:, ic_index:ic_index + 1],
     )

@@ -25,6 +25,10 @@ Peak memory is O(n_segments + L) states plus one segment's ``(S·L, 2N,
 2N)`` stage tensors. At L = 1 the stored segment starts ARE the
 trajectory, so that route keeps the trajectory, makes no re-forward and
 reads ``w_n`` straight from it.
+
+``solver="gmres"`` steps each forward and re-forward through the GMRES
+stage (no stage matrix is built there); its backward sweep solves the
+transposed stage densely by LU, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from .forward import (
     _forward_trajectory,
     _hoisted_inverses,
     _hoisted_stage_pairs,
+    _make_preconditioner,
     _stage_matrices_both,
 )
 from .objective import (
@@ -101,7 +106,8 @@ def choose_segments(nsteps: int, target_len: int = 0) -> int:
     return min(_divisors(nsteps), key=lambda S: (abs(S - want_S), S))
 
 
-def _auto_segments(prob, nsteps: int, batch: int) -> int:
+def _auto_segments(prob, nsteps: int, batch: int,
+                   working_states: int = 0) -> int:
     """The automatic segment count for ``batch`` scenarios.
 
     f32 on the card: the largest count whose stored states fit the budget
@@ -110,7 +116,8 @@ def _auto_segments(prob, nsteps: int, batch: int) -> int:
     port's backward: at L = 1 it holds the trajectory (T+1 states) and
     the multipliers (T+2), where JAX counts the trajectory once; at
     general L it holds the n_segments + 1 segment-start states (plus one
-    segment's O(L)). The batch is the one the call really has, not
+    segment's O(L)), plus ``working_states`` a step holds besides (a GMRES
+    step's Krylov basis). The batch is the one the call really has, not
     ``prob.hoist_batch_hint``. Fewer segments are faster on the card as on
     the TPU: at L = 1 nothing is re-forwarded.
 
@@ -122,9 +129,9 @@ def _auto_segments(prob, nsteps: int, batch: int) -> int:
     per_state = (max(int(batch), 1) * prob.real_system_size
                  * max(prob.N_initial_conditions, 1) * 4)
     budget = _SEG_STATE_BUDGET_GB * 2 ** 30
-    if (2 * nsteps + 3) * per_state <= budget:
+    if (2 * nsteps + 3 + working_states) * per_state <= budget:
         return nsteps                                   # L = 1
-    max_S = max(int(budget / per_state) - 1, 1)
+    max_S = max(int(budget / per_state) - 1 - working_states, 1)
     S_sqrt = choose_segments(nsteps)
     # the largest count under the budget; if even the sqrt choice is over
     # it, sqrt memory is the lesser evil (fewer segments would grow the
@@ -136,7 +143,9 @@ def _auto_segments(prob, nsteps: int, batch: int) -> int:
 
 def _segment_count(prob, n_segments: int, batch: int) -> int:
     T = prob.nsteps
-    n_seg = n_segments if n_segments > 0 else _auto_segments(prob, T, batch)
+    krylov = prob.gmres_iters + 1 if prob.solver == "gmres" else 0
+    n_seg = (n_segments if n_segments > 0
+             else _auto_segments(prob, T, batch, krylov))
     if T % n_seg:
         raise ValueError(f"n_segments={n_seg} must divide nsteps={T}")
     return n_seg
@@ -191,8 +200,9 @@ def _table_cotangents(wprob, m: int, w_rhs, w_lhs, P_cot, Q_cot, lam,
 class _Work:
     """What every segmented pass shares: the working problem, the step in
     the work dtype, the tables ``(S, T+1, m, N_ops)`` in the work dtype,
-    the refinement sweeps and, if ``drift_inverse``, the drift-only
-    inverse that warm-starts the Newton-Schulz inverses (``X0``)."""
+    the refinement sweeps, the GMRES preconditioner (``solver="gmres"``)
+    and, if ``drift_inverse``, the drift-only inverse that warm-starts the
+    Newton-Schulz inverses (``X0``)."""
 
     def __init__(self, prob, P, Q, m: int, refine_sweeps, use_kernels,
                  drift_inverse: bool):
@@ -211,6 +221,7 @@ class _Work:
         self.schulz = prob.solver == "schulz"
         self.X0 = (_drift_stage_inverse(self.wprob, m, self.dt)
                    if drift_inverse else None)
+        self.precond = _make_preconditioner(prob, self.dt64, 2 * m)
         tau = torch.ones(prob.nsteps + 1, dtype=torch.float64,
                          device=prob.device)
         tau[0] = tau[-1] = 0.5
@@ -223,7 +234,7 @@ class _Work:
         return _forward_segment_scan(
             self.wprob, self.m, self.dt, Pw[:, a:b], Qw[:, a:b],
             Pw[:, a + 1:b + 1], Qw[:, a + 1:b + 1], w_start, self.X0,
-            self.use_kernels, self.sweeps)
+            self.use_kernels, self.sweeps, self.precond)
 
     def guard_part(self, hist, a: int):
         """f64 trapezoid-weighted ``sum_t tau_t <w_t, W w_t>`` over
@@ -267,7 +278,7 @@ def _l1_forward(work):
     """The L = 1 forward: ``(trajectory (S, T+1, 2N, B), guard)``."""
     traj = _forward_trajectory(work.wprob, work.m, work.dt, work.Pw,
                                work.Qw, work.X0, work.use_kernels,
-                               work.sweeps)
+                               work.sweeps, work.precond)
     guard = guard_penalty_real(traj, work.dt64, work.prob.tf,
                                work.prob.guard_subspace_projector)
     return traj, guard

@@ -1,7 +1,8 @@
 """Setups and histories cross between the packages: files written by
 qgd_tpu load in qgd_tpu_torch and give the same objective, and the
 reverse, for every control family; resume_optimization continues the
-count; the f64 verification pass; a setup the port cannot run raises.
+count; the f64 verification pass; a GMRES setup carries its settings
+over; a setup the port cannot run raises.
 
 Tolerance: objectives of a loaded setup relative <= 1e-12 against the
 other package's, with an absolute floor of 1e-14 (float64, the same
@@ -128,12 +129,23 @@ def test_verify_history_f64_and_unported_setups(tmp_path):
     with open(base + ".f64check.json") as f:
         assert json.load(f)["f64_objective"] == rec["f64_objective"]
 
-    jprob = dataclasses.replace(qgd_tpu.models.cnot2_problem(nsteps=8),
-                                solver="gmres")
+    gmres = dict(solver="gmres", gmres_iters=12, gmres_abstol=1e-9,
+                 gmres_reltol=1e-8, preconditioner_type="diagonal")
+    jprob = dataclasses.replace(
+        qgd_tpu.models.cnot2_problem(tf=4.0, nsteps=8), **gmres)
     jck.save_setup(str(tmp_path / "gmres"), jprob,
                    qgd_tpu.BSpline2Control(4, 4.0), tgt)
-    with pytest.raises(NotImplementedError, match="gmres"):
-        qt.load_setup(str(tmp_path / "gmres"), device="cpu")
+    loaded = qt.load_setup(str(tmp_path / "gmres"), device="cpu")
+    assert {k: getattr(loaded["prob"], k) for k in gmres} == gmres
+    qt.save_setup(str(tmp_path / "gmres_back"), loaded["prob"],
+                  loaded["controls"], tgt)
+    back = jck.load_setup(str(tmp_path / "gmres_back"))["prob"]
+    assert {k: getattr(back, k) for k in gmres} == gmres
+    lprob = qt.models.cnot2_problem(tf=4.0, nsteps=8, device="cpu")
+    pc = rng.standard_normal(8) * 0.05
+    val = qt.objective_value(loaded["prob"], loaded["controls"], pc, tgt, 4)
+    ref = qt.objective_value(lprob, loaded["controls"], pc, tgt, 4)
+    assert abs(float(val) - float(ref)) <= 1e-12 * abs(float(ref)) + 1e-14
     jck.save_setup(str(tmp_path / "hermite"), qgd_tpu.models.cnot2_problem(
         nsteps=8), qgd_tpu.HermiteControl(4, 2.0, 2), tgt)
     loaded = qt.load_setup(str(tmp_path / "hermite"), device="cpu")

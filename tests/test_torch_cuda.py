@@ -324,3 +324,46 @@ def test_lbfgs_method_on_the_card(cuda):
                             pcof_L=-0.45, pcof_U=0.45, print_level=0)
     assert hist.obj_value[-1] < hist.obj_value[0]
     assert np.abs(np.asarray(hist.pcof)).max() <= 0.45
+
+
+@pytest.mark.parametrize("B,n,transposed", [(256, 128, False),
+                                            (256, 128, True),
+                                            (1, 1024, False)],
+                         ids=["stream-256", "stream-256-transposed",
+                              "ring-1024"])
+def test_rhs_kernel_at_gmres_shapes(cuda, B, n, transposed):
+    """The GMRES operator: the RHS kernel at step sign -1 on the main
+    path's stack (B = 256, n = 128), on its transposed stack (the reverse
+    solve's), and at n = 1024 (512 levels, the ring kernel)."""
+    A, W = _inputs(23 + n, B, 2, n, 8, cuda, scale=128.0 / n)
+    if transposed:
+        A = A.transpose(-1, -2).contiguous()
+    dt = torch.tensor(0.1, dtype=torch.float32, device=cuda)
+    sk.reset_launch_counts()
+    out = qt.ops.hermite_rhs_kernel_call(A, W, dt, 2, sign=-1.0)
+    torch.cuda.synchronize()
+    assert sk.rhs_launches_by_sign() == {"-1": 1, "+1": 0}
+    assert _rel_err(out, sk.rhs_plain(A, W, dt, 2, -1.0)) <= REL_TOL
+
+
+def test_gmres_route_on_the_card(cuda):
+    """CNOT3, 8 steps, 2 scenarios, f32 GMRES with the diagonal
+    preconditioner: one explicit half (sign +1) and gmres_iters + 1
+    operator applications (sign -1) per step; the history against the
+    float64 LU route, and the autograd gradient (transposed solves on the
+    card) against the Lagrange one."""
+    prob = qt.cnot3_problem(tf=4.4, nsteps=8, solver="gmres",
+                            preconditioner_type="diagonal", dtype="float32",
+                            device=cuda)
+    ctrls = tuple(qt.BSpline2Control(10, 4.4) for _ in range(3))
+    pcof = np.random.default_rng(0).standard_normal((2, 60)) * 0.01
+    sk.reset_launch_counts()
+    h = qt.eval_forward(prob, ctrls, pcof, 4)
+    assert sk.rhs_launches_by_sign() == {"-1": 8 * 21, "+1": 8}
+    ref = qt.eval_forward(qt.cnot3_problem(tf=4.4, nsteps=8, device=cuda),
+                          ctrls, pcof, 4)
+    assert float((h.double() - ref).abs().max()) <= 1e-5
+    tgt = qt.cnot3_target(tf=4.4)
+    g_ad = qt.discrete_adjoint(prob, ctrls, pcof, tgt, 4, method="ad")
+    g_la = qt.discrete_adjoint(prob, ctrls, pcof, tgt, 4)
+    assert float((g_ad - g_la).norm() / g_la.norm()) <= 1e-3

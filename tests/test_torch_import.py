@@ -33,6 +33,8 @@ def test_import_pulls_in_no_jax_and_pins_precision():
         "import qgd_tpu_torch.controls.hermite\n"
         "import qgd_tpu_torch.prefix, qgd_tpu_torch.diagnostics\n"
         "import qgd_tpu_torch.native, qgd_tpu_torch.native.binding\n"
+        "import qgd_tpu_torch.ops.gmres, qgd_tpu_torch.ops.preconditioners\n"
+        "import qgd_tpu_torch.parallel, qgd_tpu_torch.parallel.state_sharded\n"
         "print(json.dumps({\n"
         "  'jax': sorted(m for m in sys.modules\n"
         "               if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"

@@ -33,6 +33,10 @@ _FIELDS = ("system_sym", "system_asym", "sym_operators", "asym_operators",
       np.array([[0.1, 0.01, 0.02], [0.01, 0.2, 0.03], [0.02, 0.03, 0.3]]))),
     ("control_ops", (SIZES,)),
     ("cnot3_target", (550.0,)),
+    ("lowering_operator", (5,)),
+    ("multi_qudit_hamiltonian_jayne",
+     ((3, 2), [1.0, 2.0], 1.5, np.array([[0.1, 0.01], [0.01, 0.2]]),
+      np.array([[0.0, 0.05], [0.05, 0.0]]))),
 ])
 def test_builders_equal_jax_package(name, args):
     ours = getattr(tm, name)(*args)
@@ -113,3 +117,47 @@ def test_builders_default_to_the_card(build):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     assert build(device="cpu").device == torch.device("cpu")
+
+
+JC = ((3, 2), (2, 2), [1.0, 2.0], 1.5, np.array([[0.1, 0.01], [0.01, 0.2]]),
+      np.array([[0.0, 0.05], [0.05, 0.0]]), 2.0, 16)
+
+
+@pytest.mark.parametrize("builder,args,kw", [
+    ("construct_rand_prob", (3, 2), dict(tf=2.0, nsteps=24, seed=7)),
+    ("dahlquist_problem", (2.5j, 0.3 + 0.4j), dict(with_control=True)),
+    ("rotating_frame_qubit", (3, 1), dict(nsteps=20, detuning_frequency=0.4,
+                                          self_kerr_coefficient=0.2)),
+    ("JaynesCummingsProblem", JC, {}),
+    ("vector_problem", None, {}),
+])
+def test_problem_builders_equal_jax_package(builder, args, kw):
+    """The remaining builders give the JAX package's arrays bit for bit
+    (``vector_problem``: column 2 of the random problem)."""
+    if builder == "vector_problem":
+        jprob = jm.construct_rand_prob(3, 2, seed=7)
+        jprob = qgd_tpu.vector_problem(jprob, 2)
+        ours = qt.vector_problem(qt.construct_rand_prob(3, 2, seed=7,
+                                                        device="cpu"), 2)
+    else:
+        jprob = getattr(jm, builder)(*args, **kw)
+        ours = getattr(qt, builder)(*args, device="cpu", **kw)
+    for f in _FIELDS + ("tf",):
+        np.testing.assert_array_equal(
+            np.asarray(torch.as_tensor(getattr(ours, f))),
+            np.asarray(getattr(jprob, f)), err_msg=f)
+    assert (ours.nsteps, ours.N_ess_levels) == (jprob.nsteps,
+                                                jprob.N_ess_levels)
+
+
+def test_top_level_exports_and_repr():
+    """Every builder name the JAX package exports at its top level is a
+    top-level name of the port; the summary names the GMRES settings."""
+    names = set(jm.__all__) & set(qgd_tpu.__all__)
+    assert names and not [n for n in names if not hasattr(qt, n)]
+    prob = qt.rotating_frame_qubit(3, 1, device="cpu", solver="gmres",
+                                   gmres_iters=12,
+                                   preconditioner_type="diagonal")
+    text = repr(prob)
+    assert "gmres_iters = 12" in text and "'diagonal'" in text
+    assert "real system size 8" in text

@@ -101,7 +101,10 @@ def test_single_control_vector_and_auto_segments():
 
 def test_unported_routes_raise():
     """What the route cannot take raises: a segment count that does not
-    divide nsteps, and a solver the port lacks (GMRES)."""
+    divide nsteps. The GMRES solver, once refused, builds on CNOT3 and
+    takes a step that agrees with the LU step to 1e-12 (with the diagonal
+    preconditioner; unpreconditioned, 20 Arnoldi steps leave 2e-6 at this
+    step size, in JAX as in the port)."""
     pcof, tgt = _inputs()
     _, _, tprob, tc = _problems("float64")
     with pytest.raises(ValueError, match="must divide"):
@@ -109,8 +112,16 @@ def test_unported_routes_raise():
                                             n_segments=3)
     with pytest.raises(ValueError, match="must divide"):
         qt.segmented_objective_value(tprob, tc, pcof, tgt, 4, n_segments=5)
-    with pytest.raises(NotImplementedError, match="gmres"):
-        qt.cnot3_problem(tf=TF, nsteps=NSTEPS, solver="gmres", device="cpu")
+    dt = TF / NSTEPS
+    gprob = qt.cnot3_problem(tf=dt, nsteps=1, solver="gmres",
+                             preconditioner_type="diagonal", device="cpu")
+    assert gprob.solver == "gmres" and gprob.gmres_iters == 20
+    lprob = qt.cnot3_problem(tf=dt, nsteps=1, device="cpu")
+    tc1 = tuple(qt.BSpline2Control(10, dt) for _ in range(3))
+    step = qt.eval_forward(gprob, tc1, pcof[0], 4)
+    assert step.shape == (2, 128, 8)
+    ref = qt.eval_forward(lprob, tc1, pcof[0], 4)
+    assert float((step - ref).abs().max()) <= 1e-12
 
 
 @pytest.mark.parametrize("solver", ["schulz", "lu"])
