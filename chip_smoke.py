@@ -41,12 +41,21 @@ whose GMRES operator is the RHS kernel at step sign -1: the main path's
 configuration (S = 256, nsteps = 1000, 20 Arnoldi steps) on the segmented
 route held against float64 LU, with launches by sign, and the autograd
 gradient of a 20-step slice (the transposed solves); ``optimize_gate`` on
-the optimize phase's setup; and CNOT3's transmons at 8 levels each (512
-levels, 2N = 1024: the ring kernel), whose stage matrices are never built,
-single-device and level-sharded (``tp_forward_history``) on a one-rank
-NCCL group.
+the optimize phase's setup. The gmres_large phase: CNOT3's transmons at 8
+levels each (512 levels, 2N = 1024: the RHS kernel's level path), whose
+stage matrices are never built, single-device and level-sharded
+(``tp_forward_history``) on a one-rank NCCL group.
 
-    python3 chip_smoke.py
+The order8 phase: the main path's call at order 8 (m = 4: the LHS
+kernel's staged launch plus two level launches per call, the RHS kernel at
+m = 4) held against float64 LU. The large_dense phase: the 512-level
+system on the dense f32 Schulz route (the LHS kernel at 2N = 1024, B = 20
+per segment at L = 20 and B = 1 per step at L = 1, and the explicit half)
+held against float64 LU. The wide phase: both kernels against their plain
+versions at shapes whose state levels outgrow a block's shared memory.
+
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --phases kernels,order8,large_dense,gmres_large
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit; exits non-zero, printing no result, without them. Imports no
@@ -120,6 +129,17 @@ GMRES_ITERS, GMRES_AD_STEPS, GMRES_OPT_ITERS, GMRES_OPT_BUDGET = 20, 20, 2, 4
 LARGE_NSTEPS = 200
 GMRES_TRACE_STEPS = 10
 LARGE_F64_TOL, TP_TOL = 1e-4, 1e-5
+# order8 phase: the main path at order 8 (m = 4: the LHS kernel's staged
+# launch plus two level launches). large_dense phase: the 512-level system
+# on the dense Schulz route, at segment length LARGE_L (n_segments = 10)
+# and on the automatic rule.
+ORDER8 = 8
+LARGE_L = 20
+# Shapes no kernel took before the level path of the RHS kernel: (B, m, n,
+# b) = 2N = 2048 at order 4, a 4-qubit gate's 16 columns at 512 levels,
+# order 10 and order 12 at 512 levels (the last ragged past 1024).
+WIDE_SHAPES = ((1, 2, 2048, 8), (1, 2, 1024, 16), (1, 5, 1024, 8),
+               (1, 6, 2000, 8))
 
 
 def phase(name, msg):
@@ -257,13 +277,14 @@ def _bound(flops, nbytes):
     return t_bytes, "bytes", "hbm_bytes"
 
 
-def _main_path_stacks(prob, controls, pcof, dev):
+def _main_path_stacks(prob, controls, pcof, dev, order=ORDER):
     """Generator stacks (S, m, 2N, 2N) and states (S, 2N, 8) as the main
-    path hands them to the kernels (f32, step 500's left end)."""
+    path hands them to the kernels at this order (f32, step 500's left
+    end)."""
     import qgd_tpu_torch as qt
     from qgd_tpu_torch.forward import _time_grid
 
-    m = ORDER // 2
+    m = order // 2
     wprob = qt.working_problem(prob)
     _, ts = _time_grid(prob)
     P, Q = qt.control_tables(controls, pcof, ts[500:501], m)
@@ -327,9 +348,15 @@ def kernel_phase(prob, controls, pcof, dev, smi):
 
     A, W, dt = _main_path_stacks(prob, controls, pcof, dev)
     rows = _kernel_rows(A, W, dt, dev, smi, "main")
+    # the order8 phase's: the main path at order 8 (m = 4), the LHS as the
+    # staged launch plus levels 2 and 3
+    A8, _, _ = _main_path_stacks(prob, controls, pcof, dev, order=ORDER8)
+    rows += _kernel_rows(A8, W, dt, dev, smi, "order8", "B=256,m=4",
+                         rhs_tag="B=256,m=4")
+    del A8
     # the gmres phase's shapes: the GMRES operator (RHS kernel at sign -1)
     # on the main path's stacks, on their transposed copy (the reverse
-    # solve of the autograd gradient) and at 512 levels (the ring kernel)
+    # solve of the autograd gradient) and at 512 levels (the level path)
     rows += _kernel_rows(A, W, dt, dev, smi, "gmres", lhs=False,
                          rhs_sign=-1.0, rhs_tag="B=256,sign=-1")
     rows += _kernel_rows(A.transpose(-1, -2).contiguous(), W, dt, dev, smi,
@@ -339,7 +366,16 @@ def kernel_phase(prob, controls, pcof, dev, smi):
     A, W, dt = _large_stacks(dev)
     rows += _kernel_rows(A, W, dt, dev, smi, "gmres_large", lhs=False,
                          rhs_sign=-1.0, rhs_tag="B=1,n=1024,sign=-1")
+    # the large_dense phase's: the same system's implicit-stage build at
+    # one step (L = 1, the automatic rule) and at one segment of L =
+    # LARGE_L (B = 20), and its explicit half
+    rows += _kernel_rows(A, W, dt, dev, smi, "large_dense", "B=1,n=1024",
+                         rhs_tag="B=1,n=1024,sign=+1")
     del A, W
+    A, _, dt = _large_stacks(dev, steps=LARGE_L)
+    rows += _kernel_rows(A, None, dt, dev, smi, "large_dense",
+                         f"B={LARGE_L},n=1024")
+    del A
     # the segmented phase's shape: one segment's implicit-stage build at
     # L = 40 for the 256 scenarios (B = 10240)
     A, dt = _segment_stacks(prob, controls, pcof, dev)
@@ -362,11 +398,41 @@ def kernel_phase(prob, controls, pcof, dev, smi):
     return rows
 
 
+def wide_phase(dev, smi):
+    """Both kernels against their plain versions at WIDE_SHAPES, the
+    shapes whose state levels outgrew the shared memory of the RHS
+    kernel's earlier general path; correctness only."""
+    from qgd_tpu_torch.ops import stage_kernels as sk
+
+    errs = []
+    for B, m, n, b in WIDE_SHAPES:
+        rng = np.random.default_rng(7 * m + n + b)
+        # entries ~ 1/sqrt(n): the stack's norms stay O(1) at every n
+        A = torch.tensor(rng.standard_normal((B, m, n, n)) / np.sqrt(n),
+                         dtype=torch.float32, device=dev)
+        W = torch.tensor(rng.standard_normal((B, n, b)), dtype=torch.float32,
+                         device=dev)
+        dt = torch.tensor(0.1, dtype=torch.float32, device=dev)
+        e_r = _rel(sk.hermite_rhs_kernel_call(A, W, dt, m),
+                   sk.rhs_plain(A, W, dt, m))
+        e_l = _rel(sk.hermite_lhs_matrix_kernel_call(A, dt, m),
+                   sk.lhs_matrix_plain(A, dt, m))
+        torch.cuda.synchronize()
+        errs.append(f"(B,m,n,b)={(B, m, n, b)}: rhs {e_r:.2e} lhs {e_l:.2e}")
+        check(e_r <= KERNEL_REL_TOL and e_l <= KERNEL_REL_TOL,
+              f"kernel vs plain at {(B, m, n, b)}: rhs {e_r:.2e} lhs "
+              f"{e_l:.2e}")
+        del A, W
+    phase("wide", f"kernel vs plain (<= {KERNEL_REL_TOL:g} relative) "
+                  f"{'; '.join(errs)}; {smi}")
+
+
 def _large_problem(dev, dtype="float32", solver="gmres"):
     """CNOT3's transmons with 8 levels each: 512 levels, 2N = 1024, the
     2 x 2 x 2 essential block (8 gate columns), CNOT3's frequencies, frame
     and Kerr matrix; LARGE_NSTEPS steps of dt = 0.1; GMRES with the
-    diagonal preconditioner, and 3 x BSpline2Control(10)."""
+    diagonal preconditioner (Schulz: the main path's settings), and 3 x
+    BSpline2Control(10)."""
     import qgd_tpu_torch as qt
 
     freqs = 2 * np.pi * np.array([4.10336, 4.81831, 7.8447])
@@ -377,16 +443,20 @@ def _large_problem(dev, dtype="float32", solver="gmres"):
     kw = dict(solver=solver, dtype=dtype, device=dev)
     if solver == "gmres":
         kw.update(gmres_iters=GMRES_ITERS, preconditioner_type="diagonal")
+    elif solver == "schulz":    # the main path's solver settings
+        kw.update(schulz_iters=48, schulz_warm_budget=0)
     prob = qt.DispersiveProblem((8, 8, 8), (2, 2, 2), freqs, freqs, kerr,
                                 LARGE_NSTEPS * 0.1, LARGE_NSTEPS, **kw)
     controls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
     return prob, controls
 
 
-def _large_stacks(dev):
+def _large_stacks(dev, steps=0):
     """The generator stack (1, m, 1024, 1024) of the large system at its
-    middle step, as its GMRES operator hands it to the RHS kernel, and a
-    state block (1, 1024, 8)."""
+    middle step, as its GMRES operator hands it to the RHS kernel (or, with
+    ``steps``, the stacks (steps, m, 1024, 1024) of the first segment's
+    right endpoints, as one segment's implicit-stage build hands them to
+    the LHS kernel), and a state block (1, 1024, 8)."""
     import qgd_tpu_torch as qt
     from qgd_tpu_torch.forward import _time_grid
 
@@ -394,10 +464,11 @@ def _large_stacks(dev):
     prob, controls = _large_problem(dev)
     _, ts = _time_grid(prob)
     pc = _main_pcof(dev)[:1]
-    P, Q = qt.control_tables(controls, pc, ts[LARGE_NSTEPS // 2:
-                                              LARGE_NSTEPS // 2 + 1], m)
+    t = (ts[1:steps + 1] if steps else
+         ts[LARGE_NSTEPS // 2:LARGE_NSTEPS // 2 + 1])
+    P, Q = qt.control_tables(controls, pc, t, m)
     A = qt.assemble_generator_stack(qt.working_problem(prob),
-                                    P[:, 0].float(), Q[:, 0].float(),
+                                    P[0].float(), Q[0].float(),
                                     m).contiguous()
     rng = np.random.default_rng(4)
     W = torch.tensor(rng.standard_normal((1, 1024, 8)), dtype=torch.float32,
@@ -468,18 +539,17 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
     the phase whose launches the rows report; ``tag`` (``rhs_tag``, default
     ``B=...``) is appended to the names of a second shape's LHS (RHS)
     rows."""
-    import qgd_tpu_torch as qt
     from qgd_tpu_torch.ops import stage_kernels as sk
 
-    m = ORDER // 2
+    m = A.shape[1]
     n = A.shape[-1]
     f32 = 4
     B_l = A.shape[0]
-    # what each function must do: the LHS one n^3 product per matrix at
-    # m = 2, the RHS m(m+1)/2 products of n^2 b; each input read once, each
-    # output written once
+    # what each function must do: the LHS m(m-1)/2 products of n^3 per
+    # matrix (level j has j), the RHS m(m+1)/2 products of n^2 b; each input
+    # read once, each output written once
     work = {} if not lhs else {
-        "hermite_lhs_matrix": (2 * n ** 3 * B_l * (m - 1),
+        "hermite_lhs_matrix": (m * (m - 1) // 2 * 2 * n ** 3 * B_l,
                                (A.numel() + B_l * n * n) * f32)}
     if W is not None:
         b = W.shape[-1]
@@ -487,24 +557,15 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
         B_r = Ar.shape[0]
         work["hermite_rhs"] = (m * (m + 1) // 2 * 2 * n * n * b * B_r,
                                (Ar.numel() + 2 * W.numel()) * f32)
-    # the library yardstick of the LHS at m = 2: one cuBLAS batched FP32
-    # product, C + (c2/2) At0 At0 with C = c0 I + c1 At0 + (c2/2) At1 on
-    # the scaled stack, prepared outside the timed graph
     cases = []
     if lhs:
-        c = qt.hermite_coefficients(m)
-        scales = sk._stack_scales(dt, m, sign, dev)
-        a0s, a1s = A[:, 0] * scales[0], A[:, 1] * scales[1]
-        C = (c[0] * torch.eye(n, device=dev) + c[1] * a0s
-             + (c[2] / 2) * a1s)
-        del a1s
-        library = lambda: torch.baddbmm(C, a0s, a0s, alpha=c[2] / 2)
+        yardstick, is_chain = _lhs_yardstick(A, dt, sign, dev)
         cases.append(("hermite_lhs_matrix", "qgd_tpu_torch/csrc/lhs.cu",
                       "qgd_tpu/ops/pallas_step.py:184",
                       lambda: sk.hermite_lhs_matrix_kernel_call(A, dt, m,
                                                                 sign),
-                      lambda: sk.lhs_matrix_plain(A, dt, m, sign), library,
-                      B_l))
+                      lambda: sk.lhs_matrix_plain(A, dt, m, sign),
+                      yardstick, B_l, is_chain))
     flush_buf = torch.empty(FLUSH_BYTES // f32, dtype=torch.float32,
                             device=dev)
     flush = flush_buf.zero_
@@ -518,8 +579,8 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
                       "qgd_tpu/ops/pallas_step.py:91",
                       lambda: entry(Ar, W, dt, m, rhs_sign),
                       lambda: sk.rhs_plain(Ar, W, dt, m, rhs_sign), None,
-                      B_r))
-    for name, src, replaces, kern, plain, lib, B in cases:
+                      B_r, False))
+    for name, src, replaces, kern, plain, lib, B, is_chain in cases:
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
@@ -539,8 +600,10 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
                                                        plain)]
         ms = float(np.mean(dev_ms[1:3]))
         plain_ms = float(np.mean([dev_ms[0], dev_ms[3]]))
-        library_ms = (_device_ms(lib, calls=calls) if lib is not None
-                      else None)
+        lib_ms = _device_ms(lib, calls=calls) if lib is not None else None
+        # a chain of calls is no single library call: its time goes in
+        # the note, library_ms stays null
+        library_ms = None if is_chain else lib_ms
         cold_ms = _cold_ms(kern, flush, calls=calls)
         bound_ms, bound_by, resource = _bound(*work[name])
         eager = [_eager_ms(f) for f in (plain, kern)]
@@ -563,6 +626,15 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
         if lib is None:
             row["library_note"] = ("no single PyTorch call: W2 depends on "
                                    "W1, two dependent products")
+        elif is_chain:
+            row["library_note"] = (
+                f"no single PyTorch call at m = {m}: D_(j+1) depends on "
+                f"D_j; the chain of {m * (m - 1) // 2} cuBLAS products "
+                f"(torch.baddbmm per product on the pre-scaled stack) and "
+                f"its level sums took {lib_ms:.4f} ms")
+            lib_note = (f"; library: none, chain of per-level cuBLAS "
+                        f"products {lib_ms:.4f} ms, {lib_rel:.1e} rel vs "
+                        f"plain")
         else:
             lib_note = (f"; library (torch.baddbmm on the pre-scaled "
                         f"stack) {library_ms:.4f} ms, {lib_rel:.1e} rel vs "
@@ -592,6 +664,40 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
                          f"{row['device_launches']}: {kernels}; {smi}")
     del flush_buf
     return rows
+
+
+def _lhs_yardstick(A, dt, sign, dev):
+    """``(fn, is_chain)``: at m = 2 one cuBLAS batched FP32 product, C +
+    (c2/2) At0 At0 with C = c0 I + c1 At0 + (c2/2) At1 on the scaled stack,
+    prepared outside the timed graph (the library call); at m >= 3 no
+    single call computes the recursion, and ``fn`` runs it as a chain of
+    one ``torch.baddbmm`` per product on the pre-scaled stack."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.ops import stage_kernels as sk
+
+    m, n = A.shape[1], A.shape[-1]
+    c = qt.hermite_coefficients(m)
+    scales = sk._stack_scales(dt, m, sign, dev)
+    if m == 2:
+        a0s, a1s = A[:, 0] * scales[0], A[:, 1] * scales[1]
+        C = (c[0] * torch.eye(n, device=dev) + c[1] * a0s
+             + (c[2] / 2) * a1s)
+        del a1s
+        return (lambda: torch.baddbmm(C, a0s, a0s, alpha=c[2] / 2)), False
+    As = A * scales[None, :, None, None]
+    eye = torch.eye(n, device=dev)
+
+    def chain():
+        D = [None, As[:, 0]]
+        out = c[0] * eye + c[1] * As[:, 0]
+        for j in range(1, m):
+            acc = As[:, j]
+            for i in range(1, j + 1):
+                acc = torch.baddbmm(acc, As[:, j - i], D[i])
+            D.append(acc / (j + 1))
+            out = out + c[j + 1] * D[-1]
+        return out
+    return chain, True
 
 
 def main_path_phase(prob, controls, pcof, tgt, dev, rows, smi):
@@ -670,6 +776,135 @@ def main_path_phase(prob, controls, pcof, tgt, dev, rows, smi):
                   f"(limit {RESIDUAL_LIMIT:g}; the TPU runs' guard was "
                   f"{TPU_ERA_GUARD:g}, reported, not asserted); {smi}")
     check(res["max"] <= RESIDUAL_LIMIT, "stage residual")
+
+
+def _set_launches(rows, driven_by, counts, tag=None):
+    """Give the rows of phase ``driven_by`` (those whose name carries
+    ``tag``, when given) the launches of their kernel in ``counts``."""
+    for r in rows:
+        if r["phase"] == driven_by and (tag is None or tag in r["name"]):
+            r["launches"] = counts[r["name"].split("[")[0]]
+
+
+def order8_phase(prob, controls, pcof, tgt, dev, rows, smi):
+    """The main path's call at order 8 (m = 4): launches, seconds per call,
+    scenarios 0-3 against float64 LU, and the stage residual."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.ops import stage_kernels as sk
+
+    run = lambda p, pc: qt.segmented_objective_and_gradient(
+        p, controls, pc, tgt, ORDER8)
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        (j1, g, _), grad = run(prob, pcof)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = sk.launch_counts()
+    # per call, as at order 4: one LHS-kernel call (staged launch plus the
+    # level launches j = 2, 3) and one RHS-kernel call per forward step
+    expected = {"hermite_lhs_matrix": NSTEPS, "hermite_rhs": NSTEPS}
+    check(counts == expected, f"order8 launch counts {counts} != "
+                              f"{expected}")
+    _set_launches(rows, "order8", counts)
+    obj = j1 + g
+    check(obj.shape == (SCENARIOS,) and grad.shape == (SCENARIOS, 60)
+          and bool(torch.isfinite(obj).all() and torch.isfinite(grad).all()),
+          "order8: finite objective and gradient of the expected shapes")
+    k = 4
+    prob64 = qt.cnot3_problem(nsteps=NSTEPS, device=dev)    # f64, "lu"
+    (fj1, fg, _), fgrad = run(prob64, pcof[:k])
+    d_obj, d_grad = _scenario_deltas(obj[:k], grad[:k], fj1 + fg, fgrad)
+    res = qt.stage_residuals(prob, controls, pcof[:1], ORDER8, sample=8)
+    phase("order8", f"CNOT3 nsteps={NSTEPS} S={SCENARIOS} f32 kernel route "
+                    f"at order {ORDER8}: seconds per call "
+                    f"{[round(t, 3) for t in secs]}; launches per call "
+                    f"{counts}; scenarios 0-3 vs the f64 lu route: |d obj| "
+                    f"{d_obj:.3e} (<= {F64_OBJ_TOL:g}), |d grad|/|grad| "
+                    f"{d_grad:.3e} (<= {F64_GRAD_TOL:g}); f64 objective "
+                    f"{[round(float(x), 9) for x in fj1 + fg]}; stage "
+                    f"residual, scenario 0, 8 probes: max {res['max']:.3e} "
+                    f"mean {res['mean']:.3e} (limit {RESIDUAL_LIMIT:g}); "
+                    f"{smi}")
+    check(d_obj <= F64_OBJ_TOL and d_grad <= F64_GRAD_TOL,
+          "order8: kernel route vs f64 lu route")
+    check(res["max"] <= RESIDUAL_LIMIT, "order8: stage residual")
+
+
+def large_dense_phase(pcof, dev, rows, smi):
+    """The 512-level system (2N = 1024, 8 columns, S = 1, LARGE_NSTEPS
+    steps) on the dense route, f32 Schulz with the main path's settings:
+    objective and gradient at segment length LARGE_L and on the automatic
+    rule, against float64 LU, with the stage residual."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.ops import stage_kernels as sk
+    from qgd_tpu_torch.segmented import _segment_count
+
+    prob, controls = _large_problem(dev, solver="schulz")
+    n2 = prob.real_system_size
+    rng = np.random.default_rng(5)
+    tgt = (rng.standard_normal((n2 // 2, 8))
+           + 1j * rng.standard_normal((n2 // 2, 8)))
+    pc = pcof[:1]
+    n_seg = LARGE_NSTEPS // LARGE_L
+    n_auto = _segment_count(prob, 0, 1)
+    out = {}
+    for ns in (n_seg, n_auto):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        (j1, g, _), grad = qt.segmented_objective_and_gradient(
+            prob, controls, pc, tgt, ORDER, n_segments=ns)
+        torch.cuda.synchronize()
+        out[ns] = (j1 + g, grad, time.perf_counter() - t0,
+                   torch.cuda.max_memory_allocated(), sk.launch_counts())
+    # forward and re-forward launch the LHS kernel once per segment (at
+    # B = L) and the RHS kernel once per step; at L = 1 the forward alone
+    # runs, one of each per step
+    passes = {n_seg: 2, n_auto: 1 if n_auto == LARGE_NSTEPS else 2}
+    for ns, (_, _, _, _, counts) in out.items():
+        expected = {"hermite_lhs_matrix": passes[ns] * ns,
+                    "hermite_rhs": passes[ns] * LARGE_NSTEPS}
+        check(counts == expected, f"large_dense launch counts at "
+                                  f"n_segments={ns}: {counts} != {expected}")
+    _set_launches(rows, "large_dense", out[n_seg][4], f"B={LARGE_L},")
+    _set_launches(rows, "large_dense", out[n_auto][4],
+                  f"B={LARGE_NSTEPS // n_auto},")
+    prob64, _ = _large_problem(dev, dtype="float64", solver="lu")
+    t0 = time.perf_counter()
+    (fj1, fg, _), fgrad = qt.segmented_objective_and_gradient(
+        prob64, controls, pc, tgt, ORDER)
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t0
+    res = qt.stage_residuals(prob, controls, pc, ORDER, sample=8)
+    deltas = {ns: _scenario_deltas(o[0], o[1], fj1 + fg, fgrad)
+              for ns, o in out.items()}
+    phase("large_dense", f"512 levels (2N = {n2}, 8 columns), nsteps="
+                         f"{LARGE_NSTEPS}, dt=0.1, S=1, f32 schulz (warm "
+                         f"budget 0, 3 sweeps): "
+                         + "; ".join(
+                             f"n_segments={ns} (L={LARGE_NSTEPS // ns}): "
+                             f"{o[2]:.3f} s, peak memory {o[3] / 1e9:.3f} "
+                             f"GB, launches {o[4]}, vs the f64 lu route "
+                             f"|d obj| {deltas[ns][0]:.3e}, |d grad|/|grad| "
+                             f"{deltas[ns][1]:.3e}"
+                             for ns, o in out.items())
+                         + f" (limits {F64_OBJ_TOL:g}, {F64_GRAD_TOL:g}; "
+                           f"f64 lu {t64:.3f} s, objective "
+                           f"{float((fj1 + fg)[0]):.9f}); stage residual, 8 "
+                           f"probes: max {res['max']:.3e} mean "
+                           f"{res['mean']:.3e} (limit {RESIDUAL_LIMIT:g}); "
+                           f"{smi}")
+    for ns, o in out.items():
+        check(bool(torch.isfinite(o[0]).all() and torch.isfinite(o[1]).all())
+              and o[1].shape == (1, 60), f"large_dense n_segments={ns}: "
+                                         f"finite values of the shape")
+        check(deltas[ns][0] <= F64_OBJ_TOL and deltas[ns][1] <= F64_GRAD_TOL,
+              f"large_dense n_segments={ns}: f32 schulz vs f64 lu")
+    check(res["max"] <= RESIDUAL_LIMIT, "large_dense: stage residual")
 
 
 def _optimize_setup(dev):
@@ -1153,11 +1388,9 @@ def gmres_phase(pcof, tgt, rows, start, dev, smi):
     segmented route, held against float64 LU, with launches by sign, s/call,
     peak memory and stage residual; the autograd gradient of a short slice
     through the transposed solves; (b) optimize_gate on the optimize
-    phase's setup; (c) a 512-level system whose stage matrices are not
-    built, single-device and level-sharded over a one-rank NCCL group."""
+    phase's setup. (c) is :func:`gmres_large_phase`."""
     import qgd_tpu_torch as qt
     from qgd_tpu_torch.ops import stage_kernels as sk
-    from qgd_tpu_torch.parallel import make_tp_mesh, tp_forward_history
     from qgd_tpu_torch.segmented import _segment_count
 
     t_phase = time.perf_counter()
@@ -1300,18 +1533,31 @@ def gmres_phase(pcof, tgt, rows, start, dev, smi):
           "gmres optimize: a later objective below the first")
     check(abs(hist.obj_value[0] - start["obj"]) <= F64_OBJ_TOL,
           "gmres optimize: the start objective is the Schulz route's")
+    phase("gmres", f"phase {time.perf_counter() - t_phase:.1f} s; {smi}")
 
-    # (c) a system whose stage matrices are not built
+
+def gmres_large_phase(pcof, rows, dev, smi):
+    """(c) of the gmres phase: a 512-level system whose stage matrices are
+    not built, single-device and level-sharded over a one-rank NCCL group,
+    held against float64 LU."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.ops import stage_kernels as sk
+    from qgd_tpu_torch.parallel import make_tp_mesh, tp_forward_history
+
+    t_phase = time.perf_counter()
+    per_step = GMRES_ITERS + 1          # the initial residual and iters
     prob_l, controls_l = _large_problem(dev)
     pc1 = pcof[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    sk.reset_launch_counts()
-    t0 = time.perf_counter()
-    h = qt.eval_forward(prob_l, controls_l, pc1, ORDER)
-    torch.cuda.synchronize()
-    t_fwd = time.perf_counter() - t0
+    t_fwd = []
+    for _ in range(2):
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        h = qt.eval_forward(prob_l, controls_l, pc1, ORDER)
+        torch.cuda.synchronize()
+        t_fwd.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() - base
     by_sign = sk.rhs_launches_by_sign()
     check(by_sign == {"-1": LARGE_NSTEPS * per_step, "+1": LARGE_NSTEPS},
@@ -1347,11 +1593,12 @@ def gmres_phase(pcof, tgt, rows, start, dev, smi):
     d_tp = float((h_tp - h).abs().max())
     phase("gmres", f"512 levels (2N = {n2}, 8 columns), nsteps="
                    f"{LARGE_NSTEPS}, dt=0.1, f32 GMRES({GMRES_ITERS}) "
-                   f"diagonal, S=1: {t_fwd:.3f} s, peak memory above the "
+                   f"diagonal, S=1: {', '.join(f'{t:.3f}' for t in t_fwd)}"
+                   f" s per call, peak memory above the "
                    f"problem {peak / 1e6:.1f} MB (at {OPT_NSTEPS} steps "
                    f"{gmres_5500 / 1e9:.3f} GB with the longer history, where "
                    f"the hoisted LU route would hold {hoisted / 1e9:.1f} GB "
-                   f"of f32 stage tensors); ring-kernel operator launches "
+                   f"of f32 stage tensors); RHS-kernel operator launches "
                    f"{by_sign['-1']}, explicit halves {by_sign['+1']}; vs "
                    f"the f64 lu route ({t64:.3f} s, hoisting capped: "
                    f"{capped}) max |d w| {d_large:.3e} (<= "
@@ -1363,7 +1610,7 @@ def gmres_phase(pcof, tgt, rows, start, dev, smi):
           "large system: finite history of the expected shape")
     check(d_large <= LARGE_F64_TOL, "large system: f32 GMRES vs f64 lu")
     check(d_tp <= TP_TOL, "large system: level-sharded vs single-device")
-    phase("gmres", f"phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    phase("gmres", f"(c) {time.perf_counter() - t_phase:.1f} s; {smi}")
 
 
 def _profile_ops(fn):
@@ -1400,7 +1647,34 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def main():
+# The phases in the order they run; a row's phase (``_kernel_rows``'s
+# ``driven_by``) is one of these or a part of one (ROW_PHASE).
+PHASES = ("kernels", "wide", "main", "order8", "large_dense", "segmented",
+          "optimize", "prefix", "lbfgs", "forced", "multistart", "gmres",
+          "gmres_large", "trace")
+ROW_PHASE = {"gmres_ad": "gmres", "gmres_optimize": "gmres"}
+
+
+def _parse_phases(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ", ".join(PHASES)
+                         + " (default: all; the kernel rows come from "
+                           "'kernels')")
+    chosen = ap.parse_args(argv).phases.split(",")
+    unknown = set(chosen) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    if {"prefix", "gmres"} & set(chosen) and "optimize" not in chosen:
+        ap.error("prefix and gmres compare with the optimize phase's start "
+                 "point: add optimize")
+    return [p for p in PHASES if p in chosen]
+
+
+def main(argv=None):
+    phases = _parse_phases(argv)
     t_start = time.perf_counter()
     smi = device_phase()
     import qgd_tpu_torch as qt
@@ -1415,27 +1689,48 @@ def main():
     rng = np.random.default_rng(1)
     tgt = rng.standard_normal((64, 8)) + 1j * rng.standard_normal((64, 8))
 
-    rows = kernel_phase(prob, controls, pcof, dev, smi)
-    main_path_phase(prob, controls, pcof, tgt, dev, rows, smi)
-    segmented_phase(prob, controls, pcof, tgt, dev, rows, smi)
-    start = optimize_phase(rows, dev, smi)
-    prefix_phase(rows, start, dev, smi)
-    lbfgs_phase(dev, smi)
-    forced_phase(dev, smi)
-    multistart_phase(dev, smi)
-    gmres_phase(pcof, tgt, rows, start, dev, smi)
-    trace_phase(pcof, tgt, dev, smi)
+    rows, start = [], None
+    run = {
+        "kernels": lambda: rows.extend(kernel_phase(prob, controls, pcof,
+                                                    dev, smi)),
+        "wide": lambda: wide_phase(dev, smi),
+        "main": lambda: main_path_phase(prob, controls, pcof, tgt, dev,
+                                        rows, smi),
+        "order8": lambda: order8_phase(prob, controls, pcof, tgt, dev, rows,
+                                       smi),
+        "large_dense": lambda: large_dense_phase(pcof, dev, rows, smi),
+        "segmented": lambda: segmented_phase(prob, controls, pcof, tgt, dev,
+                                             rows, smi),
+        "optimize": lambda: optimize_phase(rows, dev, smi),
+        "prefix": lambda: prefix_phase(rows, start, dev, smi),
+        "lbfgs": lambda: lbfgs_phase(dev, smi),
+        "forced": lambda: forced_phase(dev, smi),
+        "multistart": lambda: multistart_phase(dev, smi),
+        "gmres": lambda: gmres_phase(pcof, tgt, rows, start, dev, smi),
+        "gmres_large": lambda: gmres_large_phase(pcof, rows, dev, smi),
+        "trace": lambda: trace_phase(pcof, tgt, dev, smi),
+    }
+    for name in phases:
+        t0 = time.perf_counter()
+        result = run[name]()
+        if name == "optimize":
+            start = result
+        phase("time", f"{name} {time.perf_counter() - t0:.1f} s")
     for row in rows:
-        check(row["launches"] > 0, f"{row['name']} was not launched by its "
-                                   f"phase")
-    phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f}"
-                  f" s; {smi}")
+        if ROW_PHASE.get(row["phase"], row["phase"]) in phases:
+            check(row["launches"] > 0, f"{row['name']} was not launched by "
+                                       f"its phase")
+    phase("done", f"phases {', '.join(phases)} passed in "
+                  f"{time.perf_counter() - t_start:.1f} s; {smi}")
 
     print(json.dumps({"kernels": rows}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {
+    ok = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}
+    if len(phases) < len(PHASES):
+        ok["phases"] = phases
+    print(json.dumps(ok), flush=True)
 
 
 if __name__ == "__main__":

@@ -41,14 +41,32 @@
 //  * lhs_staged_kernel<true> is the same code for n = 128 (the main path),
 //    its k loop unrolled with the size known at compile time.
 //
-// lhs_level_kernel: the general path, one launch per recursion level,
-// 64 x 64 output tiles from 16-deep shared slices (4 x 4 micro-tiles).
-// It takes every n (the ragged n = 130 of the tests, n > 128), m = 1, and
-// the levels j >= 2 of m >= 3 after either first launch; its level 1
-// folds in level 0 (c_0 I + c_1 At_0 in its epilogue), so levels 0 and 1
-// are one launch on both paths. D_2 .. D_{m-1} go through the wrapper's
-// scratch.
-//
+// lhs_level_kernel: every other shape (n > 128, the ragged n = 130 of the
+// tests, m = 1) and the levels j >= 2 of every m >= 3 (order >= 6) after
+// either first launch; one launch per recursion level, whose level 1 folds
+// in level 0 (c_0 I + c_1 At_0 in its epilogue), so levels 0 and 1 are one
+// launch on both paths. At (B, m, n) = (1, 2, 1024) it does one 1024^3
+// product, 2.15 GFLOP (32 us at 67 TFLOP/s FP32) against 12.6 MB (3.8 us):
+// the FMA rate bounds it, as at order 8 on the main path, (256, 4, 128),
+// 6 products per matrix, 6.4 GFLOP (96 us).
+//  * Level j's j products are one k-loop over [At_{j-1} .. At_0] times
+//    [D_1; ..; D_j] (D_1 = At_0, D_2 .. D_{m-1} in the wrapper's scratch),
+//    into a 128 x 128 output tile per block of 256 threads, each an 8 x 8
+//    register micro-tile fed as in the staged kernel (4 FMAs per float read
+//    from shared memory). Where 128 x 128 tiles would leave SMs without a
+//    block (B = 1, n = 1024: 64 tiles), 128 x 64 tiles of 128 threads.
+//  * The k-slices (32 deep) come by cp.async, 16 bytes a copy, into a ring
+//    of 3 stages (4 for 128 x 64), so the loads of slices t+1, t+2 overlap
+//    the FMAs of slice t; one barrier per slice. Each thread scales the
+//    left slice's floats it copied, in place, by the product's step scale
+//    (both operands' scales: D_1's s goes on the left).
+//  * Ragged edges: copies outside n x n are zero-filled by the copy itself;
+//    where n % 4 != 0 or the stack is not 16-byte aligned, the same code
+//    copies one float at a time (kVec = false).
+//  * The epilogue keeps the contract of every launch: D_{j+1} to scratch
+//    while j+1 <= m-1, and out += c_{j+1} D_{j+1}.
+//  * Products stay in plain FP32 FMA (no TF32).
+
 // Plain C interface (no PyTorch headers), loaded with ctypes. Each entry
 // point launches on the given stream, allocates nothing, and returns
 // cudaGetLastError() (or kShapeRefused) so a refused launch is reported.
@@ -59,6 +77,8 @@
 
 using hermite::Coeffs;
 using hermite::cp_async16;
+using hermite::cp_async16_zfill;
+using hermite::cp_async4_zfill;
 using hermite::cp_async_commit;
 using hermite::cp_async_wait;
 using hermite::scale4;
@@ -215,136 +235,273 @@ lhs_staged_kernel(const float* __restrict__ a, const float* dt_dev,
 }
 
 // ---------------------------------------------------------------------------
-// level path: one launch per level j, grid (B, ceil(n/64), ceil(n/64))
+// level path: one launch per level j, a 128 x kBN tile of D_{j+1} per block
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;
-constexpr int kDepth = 16;
-constexpr int kEdge = 16;              // threads per tile edge
-constexpr int kMicro = kTile / kEdge;  // outputs per thread per edge
+constexpr int kBM = 128;           // tile rows
+constexpr int kBK = 32;            // k-depth of one slice
+constexpr int kALd = kBK + 4;      // row pitch of a left slice (floats)
+constexpr int kLevelThreads = 256;
 
-__device__ __forceinline__ const float* lhs_level(const float* a,
-                                                  const float* scratch,
-                                                  int b, int i, int m,
-                                                  int n) {
-  const size_t nn = static_cast<size_t>(n) * n;
-  if (i == 1) return a + static_cast<size_t>(b) * m * nn;  // D_1 = At_0
-  return scratch + (static_cast<size_t>(b) * (m - 2) + (i - 2)) * nn;
+// A kBM x kBN tile, each thread a kTM x 8 register micro-tile: 128 x 128
+// with 8 x 8, or 128 x 64 with 4 x 8 (twice the blocks, for small grids).
+template <int kBN, int kTM>
+struct LevelTile {
+  static constexpr int kCols = kBN / 8;    // threads along a tile row
+  static_assert(kCols * (kBM / kTM) == kLevelThreads, "256 threads");
+  static constexpr int kBLd = kBN + 4;     // row pitch of a right slice
+  static constexpr int kStages = kBN == 128 ? 3 : 4;
+  static constexpr int kStageFloats = kBM * kALd + kBK * kBLd;
+  static constexpr int kSmem = kStages * kStageFloats * sizeof(float);
+  // 16-byte copy slots of a thread: left rows lrow + 32 q (q < 4), right
+  // rows rrow + kRightStep q (q < kRightCopies)
+  static constexpr int kRightRun = kBN / 4;  // threads per right row
+  static constexpr int kRightStep = kLevelThreads / kRightRun;
+  static constexpr int kRightCopies = kBK / kRightStep;
+};
+
+// Start the copy of the 4 floats at src (row ok, columns c .. c+3 of an
+// n-wide matrix) into shared memory, zeros where outside; `any` is a valid
+// address to name when nothing is read. kVec (n % 4 == 0, 16-byte aligned
+// operands): one 16-byte cp.async, else four 4-byte ones.
+template <bool kVec>
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      const float* any, bool row_ok, int c,
+                                      int n) {
+  if (kVec) {
+    const bool inside = row_ok && c < n;
+    cp_async16_zfill(dst, inside ? src : any, inside ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool inside = row_ok && c + q < n;
+      cp_async4_zfill(dst + q, inside ? src + q : any, inside ? 4 : 0);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kEdge * kEdge)
+// v = the 4 floats at (r, c) of g, zeros outside n x n
+template <bool kVec>
+__device__ __forceinline__ void load4(const float* g, int r, int c, int n,
+                                      float (&v)[4]) {
+  const float* p = g + static_cast<size_t>(r) * n + c;
+  if (kVec) {
+    const float4 t = r < n && c < n ? *reinterpret_cast<const float4*>(p)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = r < n && c + q < n ? p[q] : 0.0f;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(float* g, int r, int c, int n,
+                                       const float (&v)[4]) {
+  float* p = g + static_cast<size_t>(r) * n + c;
+  if (kVec) {
+    if (r < n && c < n)
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (r < n && c + q < n) p[q] = v[q];
+  }
+}
+
+// Level j of the recursion on the identity for one kBM x kBN tile of one
+// element: D_{j+1} = (At_j + sum_{i=1..j} At_{j-i} D_i) / (j+1), the j
+// products as one k-loop over [At_{j-1} .. At_0] [D_1; ..; D_j] (D_1 =
+// At_0, D_2 .. D_{m-1} in scratch (B, m-2, n, n)); D_{j+1} to scratch while
+// j+1 <= m-1, and out += c_{j+1} D_{j+1} (level 1 starts out at c_0 I +
+// c_1 D_1, level 0 (m = 1) at c_0 I).
+template <int kBN, int kTM, bool kVec>
+__global__ void __launch_bounds__(kLevelThreads, 2)
 lhs_level_kernel(const float* __restrict__ a, const float* dt_dev,
                  float dt_value, float sign, float* __restrict__ scratch,
                  float* __restrict__ out, Coeffs coeffs, int m, int n,
                  int j) {
-  // +4 padding: the transposed A-tile store hits 2-way, not 16-way,
-  // bank conflicts
-  __shared__ float sA[kDepth][kTile + 4];
-  __shared__ float sD[kDepth][kTile];
-
-  const int b = blockIdx.x;
-  const int r0 = blockIdx.y * kTile;
-  const int c0 = blockIdx.z * kTile;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kEdge + tx;
+  using T = LevelTile<kBN, kTM>;
+  extern __shared__ __align__(16) float smem[];  // kStages x (left, right)
+  const int tiles_c = (n + kBN - 1) / kBN;
+  const int per_matrix = ((n + kBM - 1) / kBM) * tiles_c;
+  const int b = blockIdx.x / per_matrix;
+  const int tile = blockIdx.x - b * per_matrix;
+  const int row0 = (tile / tiles_c) * kBM;
+  const int col0 = (tile % tiles_c) * kBN;
+  const int tid = threadIdx.x;
+  const int tx = tid % T::kCols;
+  const int ty = tid / T::kCols;
   const size_t nn = static_cast<size_t>(n) * n;
   const float* a_b = a + static_cast<size_t>(b) * m * nn;
   const float s = step_base(dt_dev, dt_value, sign);
+  const int kt = (n + kBK - 1) / kBK;  // slices per product
+  const int slices = j * kt;
 
-  // i = 0 term: At_j * D_0 = At_j
-  const float scale_j = step_scale(s, j);
-  float acc[kMicro][kMicro];
+  // slice t: product i = 1 + t / kt, k in [32 (t % kt), +32): the left
+  // operand's 128 x 32 (8 threads per 128-byte row run), the right's
+  // 32 x kBN (kBN/4 threads per row run)
+  const int lrow = tid >> 3;
+  const int lcol = 4 * (tid & 7);
+  const int rrow = tid / T::kRightRun;
+  const int rcol = col0 + 4 * (tid % T::kRightRun);
+  const float* left0 = a_b + static_cast<size_t>(row0 + lrow) * n + lcol;
+  const float* d_first = a_b + static_cast<size_t>(rrow) * n + rcol;
+  const float* d_later =
+      m >= 3 ? scratch + static_cast<size_t>(b) * (m - 2) * nn +
+                   static_cast<size_t>(rrow) * n + rcol
+             : nullptr;
+  auto copy_slice = [&](int t) {
+    float* sa = smem + (t % T::kStages) * T::kStageFloats;
+    float* sb = sa + kBM * kALd;
+    const int i = 1 + t / kt;
+    const int k0 = (t % kt) * kBK;
+    const float* lp = left0 + static_cast<size_t>(j - i) * nn + k0;
 #pragma unroll
-  for (int u = 0; u < kMicro; ++u) {
-    const int r = r0 + ty + kEdge * u;
+    for (int q = 0; q < 4; ++q)
+      copy4<kVec>(sa + (lrow + 32 * q) * kALd + lcol,
+                  lp + static_cast<size_t>(32 * q) * n, a,
+                  row0 + lrow + 32 * q < n, k0 + lcol, n);
+    const float* rp = (i == 1 ? d_first
+                              : d_later + static_cast<size_t>(i - 2) * nn) +
+                      static_cast<size_t>(k0) * n;
 #pragma unroll
-    for (int v = 0; v < kMicro; ++v) {
-      const int c = c0 + tx + kEdge * v;
-      acc[u][v] = (r < n && c < n)
-                      ? a_b[j * nn + static_cast<size_t>(r) * n + c] * scale_j
-                      : 0.0f;
+    for (int q = 0; q < T::kRightCopies; ++q)
+      copy4<kVec>(sb + (rrow + T::kRightStep * q) * T::kBLd + rcol - col0,
+                  rp + static_cast<size_t>(T::kRightStep * q) * n, a,
+                  k0 + rrow + T::kRightStep * q < n, rcol, n);
+  };
+  // the product's scale s^(j-i+1) (times s for D_1 = At_0), on the left
+  // slice in place, each thread on the floats it copied itself
+  auto scale_left = [&](int t) {
+    float* sa = smem + (t % T::kStages) * T::kStageFloats;
+    const int i = 1 + t / kt;
+    const float scale =
+        step_scale(s, j - i) * (i == 1 ? step_scale(s, 0) : 1.0f);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      scale4(reinterpret_cast<float4*>(sa + (lrow + 32 * q) * kALd + lcol),
+             scale);
+  };
+
+  for (int t = 0; t < T::kStages - 1; ++t) {
+    if (t < slices) copy_slice(t);
+    cp_async_commit();  // one group per slice index, empty past the end
+  }
+
+  // the i = 0 term, At_j D_0 = At_j, read while the first slices arrive.
+  // Thread rows: 4ty + u (u < 4) and, for 8-row micro-tiles, 64 + 4ty +
+  // (u - 4); columns 4tx + v and kBN/2 + 4tx + (v - 4).
+  float acc[kTM][8];
+  {
+    const float scale_j = step_scale(s, j);
+    const float* a_j = a_b + static_cast<size_t>(j) * nn;
+#pragma unroll
+    for (int u = 0; u < kTM; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[4];
+        load4<kVec>(a_j, row0 + (u >> 2) * 64 + 4 * ty + (u & 3),
+                    col0 + h * (kBN / 2) + 4 * tx, n, v);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[u][4 * h + q] = v[q] * scale_j;
+      }
+  }
+
+  for (int t = 0; t < slices; ++t) {
+    cp_async_wait(T::kStages - 2);  // this thread's copies of slice t
+    scale_left(t);
+    __syncthreads();  // slice t in place for all; slice t-1 consumed
+    if (t + T::kStages - 1 < slices) copy_slice(t + T::kStages - 1);
+    cp_async_commit();
+    const float* sa = smem + (t % T::kStages) * T::kStageFloats;
+    const float* a_rows = sa + 4 * ty * kALd;                 // + u rows
+    const float* b_cols = sa + kBM * kALd + 4 * tx;           // + k rows
+#pragma unroll
+    for (int k = 0; k < kBK; k += 2) {
+      // the left operand 2 deep (float2): 2 kTM + 8 operand registers
+      // beside the 8 kTM sums; 8 x 8: 4 FMAs per float read from shared
+      // memory, 4 x 8: 2.7
+      float2 av[kTM];
+#pragma unroll
+      for (int u = 0; u < kTM; ++u)
+        av[u] = *reinterpret_cast<const float2*>(
+            a_rows + ((u >> 2) * 64 + (u & 3)) * kALd + k);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(b_cols + (k + kk) * T::kBLd);
+        const float4 b1 = *reinterpret_cast<const float4*>(
+            b_cols + (k + kk) * T::kBLd + kBN / 2);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int u = 0; u < kTM; ++u) {
+          const float a_uk = kk == 0 ? av[u].x : av[u].y;
+#pragma unroll
+          for (int v = 0; v < 8; ++v) acc[u][v] = fmaf(a_uk, bv[v], acc[u][v]);
+        }
+      }
     }
   }
 
-  const float scale0 = step_scale(s, 0);
-  for (int i = 1; i <= j; ++i) {
-    const float* lhs = a_b + static_cast<size_t>(j - i) * nn;  // At_{j-i}
-    const float* rhs = lhs_level(a, scratch, b, i, m, n);      // D_i
-    const float scale_l = step_scale(s, j - i);
-    const float scale_r = (i == 1) ? scale0 : 1.0f;  // D_1 = At_0
-    for (int k0 = 0; k0 < n; k0 += kDepth) {
-      // A tile (64 rows x 16 deep): 16 consecutive threads read one row
-      // slice; stored transposed as sA[k][row]
-#pragma unroll
-      for (int q = 0; q < (kTile * kDepth) / (kEdge * kEdge); ++q) {
-        const int e = tid + q * kEdge * kEdge;
-        const int rr = e / kDepth;
-        const int kk = e % kDepth;
-        const int r = r0 + rr;
-        const int k = k0 + kk;
-        sA[kk][rr] = (r < n && k < n)
-                         ? lhs[static_cast<size_t>(r) * n + k] * scale_l
-                         : 0.0f;
-      }
-      // D tile (16 deep x 64 columns): 64 consecutive threads read one row
-#pragma unroll
-      for (int q = 0; q < (kTile * kDepth) / (kEdge * kEdge); ++q) {
-        const int e = tid + q * kEdge * kEdge;
-        const int kk = e / kTile;
-        const int cc = e % kTile;
-        const int k = k0 + kk;
-        const int c = c0 + cc;
-        sD[kk][cc] = (k < n && c < n)
-                         ? rhs[static_cast<size_t>(k) * n + c] * scale_r
-                         : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kDepth; ++kk) {
-        float av[kMicro], dv[kMicro];
-#pragma unroll
-        for (int u = 0; u < kMicro; ++u) av[u] = sA[kk][ty + kEdge * u];
-#pragma unroll
-        for (int v = 0; v < kMicro; ++v) dv[v] = sD[kk][tx + kEdge * v];
-#pragma unroll
-        for (int u = 0; u < kMicro; ++u)
-#pragma unroll
-          for (int v = 0; v < kMicro; ++v)
-            acc[u][v] = fmaf(av[u], dv[v], acc[u][v]);
-      }
-      __syncthreads();
-    }
-  }
-
-  const float inv_div = static_cast<float>(j + 1);
-  const bool store_level = (j >= 1) && (j + 1 <= m - 1);
-  float* d_next = store_level
+  // D_{j+1} = acc / (j+1); out = c_0 I + c_1 D_1 + c_2 D_2 + ..., summed
+  // in that order: level 0 starts at c_0 I, level 1 at c_0 I + c_1 D_1,
+  // a later level at what the level before wrote
+  const float div = static_cast<float>(j + 1);
+  float* d_next = j >= 1 && j + 1 <= m - 1
       ? scratch + (static_cast<size_t>(b) * (m - 2) + (j - 1)) * nn
       : nullptr;
   float* out_b = out + static_cast<size_t>(b) * nn;
+  const float scale0 = step_scale(s, 0);
   const float c_next = coeffs.c[j + 1];
 #pragma unroll
-  for (int u = 0; u < kMicro; ++u) {
-    const int r = r0 + ty + kEdge * u;
+  for (int u = 0; u < kTM; ++u) {
+    const int r = row0 + (u >> 2) * 64 + 4 * ty + (u & 3);
 #pragma unroll
-    for (int v = 0; v < kMicro; ++v) {
-      const int c = c0 + tx + kEdge * v;
-      if (r < n && c < n) {
-        const size_t idx = static_cast<size_t>(r) * n + c;
-        const float d = acc[u][v] / inv_div;
-        if (store_level) d_next[idx] = d;
-        // out = c_0 I + c_1 D_1 + c_2 D_2 + ..., summed in that order;
-        // level 1 forms levels 0 and 1 together (D_1 = At_0)
-        const float eye = coeffs.c[0] * (r == c ? 1.0f : 0.0f);
-        const float prev =
-            j == 0   ? eye
-            : j == 1 ? eye + coeffs.c[1] * (a_b[idx] * scale0)
-                     : out_b[idx];
-        out_b[idx] = prev + c_next * d;
+    for (int h = 0; h < 2; ++h) {
+      const int col = col0 + h * (kBN / 2) + 4 * tx;
+      float d[4], prev[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) d[q] = acc[u][4 * h + q] / div;
+      if (j <= 1) {
+        float d1[4] = {0.f, 0.f, 0.f, 0.f};
+        if (j == 1) load4<kVec>(a_b, r, col, n, d1);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          prev[q] = coeffs.c[0] * (r == col + q ? 1.0f : 0.0f);
+          if (j == 1) prev[q] = prev[q] + coeffs.c[1] * (d1[q] * scale0);
+        }
+      } else {
+        load4<kVec>(out_b, r, col, n, prev);
       }
+      float o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) o[q] = prev[q] + c_next * d[q];
+      if (d_next != nullptr) store4<kVec>(d_next, r, col, n, d);
+      store4<kVec>(out_b, r, col, n, o);
     }
   }
+}
+
+// Launch level j over every tile of every matrix; each instantiation may
+// use the block's full shared memory once set per device.
+template <int kBN, int kTM, bool kVec>
+cudaError_t launch_level(const float* a, const float* dt, float dt_value,
+                         float sign, float* scratch, float* out,
+                         const Coeffs& coeffs, int batch, int m, int n,
+                         int j, cudaStream_t st) {
+  using T = LevelTile<kBN, kTM>;
+  static unsigned smem_set = 0;
+  const cudaError_t err = hermite::allow_full_smem(
+      reinterpret_cast<const void*>(lhs_level_kernel<kBN, kTM, kVec>),
+      &smem_set);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(batch) *
+                           ((n + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
+  lhs_level_kernel<kBN, kTM, kVec>
+      <<<static_cast<unsigned>(blocks), kLevelThreads, T::kSmem, st>>>(
+          a, dt, dt_value, sign, scratch, out, coeffs, m, n, j);
+  return cudaGetLastError();
 }
 
 // devices where the staged kernel may use its dynamic shared memory
@@ -363,17 +520,41 @@ int hermite_lhs_matrix_f32(const float* a, const float* dt, float dt_value,
                            void* stream) {
   if (m < 1 || m > hermite::kMaxLevels || n < 1 || batch < 1)
     return hermite::kShapeRefused;
+  if (m >= 3 && scratch == nullptr) return hermite::kShapeRefused;
   const Coeffs coeffs = hermite::make_coeffs(coeffs_host, m);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool staged = m >= 2 && n <= kStageDim && n % 4 == 0 &&
-                      reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
+  const bool aligned = reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
+  // 128 x 128 tiles unless they would not give every SM a block; then
+  // 128 x 64 (B = 1, n = 1024: 128 tiles, not 64)
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles_r = (n + kBM - 1) / kBM;
+  const bool wide = static_cast<long long>(batch) * tiles_r * tiles_r >= sms;
+  if (static_cast<long long>(batch) * tiles_r * ((n + 63) / 64) > 0x7fffffffLL)
+    return hermite::kShapeRefused;
+  const bool vec = n % 4 == 0 && aligned;
+  auto level = [&](int j) {
+    if (wide)
+      return vec ? launch_level<128, 8, true>(a, dt, dt_value, sign, scratch,
+                                              out, coeffs, batch, m, n, j, st)
+                 : launch_level<128, 8, false>(a, dt, dt_value, sign,
+                                               scratch, out, coeffs, batch, m,
+                                               n, j, st);
+    return vec ? launch_level<64, 4, true>(a, dt, dt_value, sign, scratch,
+                                           out, coeffs, batch, m, n, j, st)
+               : launch_level<64, 4, false>(a, dt, dt_value, sign, scratch,
+                                            out, coeffs, batch, m, n, j, st);
+  };
+  const bool staged = m >= 2 && n <= kStageDim && n % 4 == 0 && aligned;
   if (staged) {
     const bool full = n == kStageDim;
     const void* fn =
         full ? reinterpret_cast<const void*>(lhs_staged_kernel<true>)
              : reinterpret_cast<const void*>(lhs_staged_kernel<false>);
-    const cudaError_t err =
-        hermite::allow_full_smem(fn, &g_staged_smem_set[full ? 1 : 0]);
+    err = hermite::allow_full_smem(fn, &g_staged_smem_set[full ? 1 : 0]);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (full)
       lhs_staged_kernel<true><<<batch, kStageThreads, kStageSmem, st>>>(
@@ -381,23 +562,12 @@ int hermite_lhs_matrix_f32(const float* a, const float* dt, float dt_value,
     else
       lhs_staged_kernel<false><<<batch, kStageThreads, kStageSmem, st>>>(
           a, dt, dt_value, sign, scratch, out, coeffs, m, n);
-  } else {
-    const int tiles = (n + kTile - 1) / kTile;
-    lhs_level_kernel<<<dim3(batch, tiles, tiles), dim3(kEdge, kEdge), 0,
-                       st>>>(a, dt, dt_value, sign, scratch, out, coeffs, m,
-                             n, m == 1 ? 0 : 1);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (n + kTile - 1) / kTile;
-  for (int j = 2; j < m; ++j) {
-    lhs_level_kernel<<<dim3(batch, tiles, tiles), dim3(kEdge, kEdge), 0,
-                       st>>>(a, dt, dt_value, sign, scratch, out, coeffs, m,
-                             n, j);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    err = level(m == 1 ? 0 : 1);  // levels 0 and 1 in one launch
   }
-  return static_cast<int>(cudaSuccess);
+  for (int j = 2; j < m && err == cudaSuccess; ++j) err = level(j);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

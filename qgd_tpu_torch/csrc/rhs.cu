@@ -23,7 +23,7 @@
 //    prefetched into L2 by one bulk prefetch and streamed from there by
 //    the level that needs them, read coalesced straight into registers:
 //    at m = 2 each element of the stack is read from device memory once
-//    (the PR 1 ring kernel streamed At_0 twice, ~50 MB for 33.5 MB).
+//    (a kernel streaming At_0 once per level reads ~50 MB for 33.5 MB).
 //  * Streamed products (At_k W_{j-k}, k >= 1) run warp per 16 rows, lane
 //    per 4 k's with that W slice in registers; the 8 column sums of a row
 //    are reduced across the warp by a reduce-scatter of 9 shuffles. The
@@ -44,16 +44,33 @@
 //    streaming At_1 from L2 already halves the shared memory a block
 //    needs, with no cross-block exchange.
 //
-// rhs_ring_kernel: the general path (n > 128, n % 4 != 0, or state levels
-// too large to hold): 128 threads, one row each, the state levels in shared
-// memory and At streamed through a 4-deep ring of 128 x 32 tiles by
-// cp.async, once per level that uses it.
-//
+// rhs_level_kernel: every other shape (n > 128, n % 4 != 0, state levels
+// too large for the stream kernel's shared memory), one launch per level.
+// At (B, n, b) = (1, 1024, 8), m = 2 (the GMRES operator of a 512-level
+// system) it must read 8.4 MB (2.5 us at 3.35 TB/s) for 50 MFLOP: bytes
+// bound it, and the design is about requesting them from many SMs at once.
+//  * An element's rows are spread over blocks of 8 rows (grid: B x n/8
+//    blocks of 256 threads): 128 blocks fill the card's 132 SMs at B = 1,
+//    n = 1024, where one block per element used one SM.
+//  * Each block asks for all its rows of At_0 .. At_j at once (one L2
+//    bulk prefetch per matrix: 8 rows are one contiguous run), then warp w
+//    reads k in [128w, 128w+128) of every row (a float4 per lane, 512
+//    contiguous bytes per row), the lane's 4 x 8 slice of W_i in registers,
+//    8 rows x 8 columns of sums in registers across all terms i; the sums
+//    meet by shuffles within the warp and in shared memory across warps.
+//  * The state levels W_1 .. W_{m-1} live in the wrapper's scratch (B, m-1,
+//    n, b) and are read through L2: nothing in shared memory grows with n,
+//    m or b, so no shape with m <= 16 is refused.
+//  * One launch per level (m per call; the last forms sum_j c_j W_j): W_{j+1}
+//    needs every row of W_j, and the launch boundary is that barrier. A
+//    cooperative grid barrier would need every block resident, which a
+//    large batch is not; a cluster holds too few SMs for B = 1.
+//  * Each row's reduction order is fixed (lanes, then warps 0..7), so a
+//    result does not change from run to run.
+
 // Plain C interface (no PyTorch headers), loaded with ctypes. Each entry
 // point launches on the given stream, allocates nothing, and returns
 // cudaGetLastError() (or kShapeRefused) so a refused launch is reported.
-
-#include <cuda_pipeline.h>
 
 #include <cstdint>
 
@@ -87,6 +104,34 @@ size_t stream_smem(int m, int n, int bc) {
          sizeof(float);
 }
 
+// The column whose sum reduce_scatter8 leaves in `lane`: lane bits 4, 3, 2.
+__device__ __forceinline__ int scatter_col(int lane) {
+  return (lane >> 2) & 7;
+}
+
+// Sum p[0..7] over the 32 lanes of the warp, one column per group of 4
+// lanes: lanes with lane % 4 == 0 get the sum of column scatter_col(lane)
+// (9 shuffles; lane bits 4, 3, 2 pick the column, bits 1, 0 sum).
+__device__ __forceinline__ float reduce_scatter8(const float (&p)[kColBlock],
+                                                 int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float q4[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    q4[c] = (b4 ? p[c + 4] : p[c]) +
+            __shfl_xor_sync(0xffffffffu, b4 ? p[c] : p[c + 4], 16);
+  float q2[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    q2[c] = (b3 ? q4[c + 2] : q4[c]) +
+            __shfl_xor_sync(0xffffffffu, b3 ? q4[c] : q4[c + 2], 8);
+  float v = (b2 ? q2[1] : q2[0]) +
+            __shfl_xor_sync(0xffffffffu, b2 ? q2[0] : q2[1], 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v;
+}
+
 // P[r][cb..cb+7] (=, or += when accumulate) of (scale * gA) W for the
 // n x n matrix gA in device memory and the state level sW (n x bp): warp w
 // takes rows 16w..16w+15, lane l the k's 4l..4l+3 with W[4l..4l+3][cb..]
@@ -102,8 +147,7 @@ __device__ __forceinline__ void stream_product(const float* __restrict__ gA,
   }
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
-  const int col = (b4 ? 4 : 0) + (b3 ? 2 : 0) + (b2 ? 1 : 0);
+  const int col = scatter_col(lane);
   const bool k_ok = kFull || 4 * lane < n;
   const int r_end = kFull ? 16 * warp + 16 : min(n, 16 * warp + 16);
   for (int cb = 0; cb < bp; cb += kColBlock) {
@@ -142,21 +186,7 @@ __device__ __forceinline__ void stream_product(const float* __restrict__ gA,
           t = fmaf(a4[2], wr[2][c], t);
           p[c] = fmaf(a4[3], wr[3][c], t);
         }
-        // reduce-scatter: lane bits 4, 3, 2 pick the column, bits 1, 0 sum
-        float q4[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          q4[c] = (b4 ? p[c + 4] : p[c]) +
-                  __shfl_xor_sync(0xffffffffu, b4 ? p[c] : p[c + 4], 16);
-        float q2[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          q2[c] = (b3 ? q4[c + 2] : q4[c]) +
-                  __shfl_xor_sync(0xffffffffu, b3 ? q4[c] : q4[c + 2], 8);
-        float v = (b2 ? q2[1] : q2[0]) +
-                  __shfl_xor_sync(0xffffffffu, b2 ? q2[0] : q2[1], 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        const float v = reduce_scatter8(p, lane);
         if ((lane & 3) == 0) {
           float* dst = P + (r0 + i) * bp + cb + col;
           *dst = accumulate ? *dst + v : v;
@@ -200,9 +230,8 @@ rhs_stream_kernel(const float* __restrict__ a, const float* dt_dev,
                  a_b + static_cast<size_t>(r) * n + 4 * col4);
   cp_async_commit();
   if (tid == 0 && m > 1)
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(a_b + nn),
-                 "r"(static_cast<unsigned>((m - 1) * nn * sizeof(float)))
-                 : "memory");
+    hermite::prefetch_l2(a_b + nn,
+                         static_cast<unsigned>((m - 1) * nn * sizeof(float)));
   for (int e = tid; e < level; e += kStreamThreads) {
     const int r = e / bp;
     const int c = e - r * bp;
@@ -323,166 +352,187 @@ rhs_stream_kernel(const float* __restrict__ a, const float* dt_dev,
 }
 
 // ---------------------------------------------------------------------------
-// ring path: one block per batch element, all m levels in one launch
+// level path: one launch per recursion level, an element's rows spread
+// over blocks
 // ---------------------------------------------------------------------------
 
-constexpr int kRhsThreads = 128;  // rows per tile, one per thread
-constexpr int kRhsDepth = 32;     // k-depth of a tile
-constexpr int kRhsStages = 4;     // tiles in the ring
-constexpr int kColChunk = 8;      // state columns per register block
-constexpr int kTileFloats = kRhsThreads * (kRhsDepth + 1);
+constexpr int kLevelThreads = 256;  // 8 warps
+constexpr int kLevelWarps = kLevelThreads / 32;
+constexpr int kLevelRows = 8;       // rows of W_{j+1} per block
+constexpr int kWarpK = 128;         // k's of one warp step: 4 per lane
+constexpr size_t kPrefetchBytes = 32u << 20;  // of the 50 MB L2
 
-size_t ring_smem(int m, int n, int bc) {
-  return (hermite::kMaxLevels +
-          static_cast<size_t>(kRhsStages) * kTileFloats +
-          static_cast<size_t>(m + 1) * round_up(n, kRhsDepth) *
-              round_up(bc, kColChunk)) *
-         sizeof(float);
+// State level i of element b: W_0 is the input, W_1 .. W_{m-1} live in
+// the wrapper's scratch (B, m-1, n, bc); both have row stride bc.
+__device__ __forceinline__ const float* rhs_level(const float* w,
+                                                  const float* scratch,
+                                                  int b, int i, int m, int n,
+                                                  int bc) {
+  const size_t level = static_cast<size_t>(n) * bc;
+  if (i == 0) return w + static_cast<size_t>(b) * level;
+  return scratch + (static_cast<size_t>(b) * (m - 1) + (i - 1)) * level;
 }
 
-// Start the copy of the tile rows r0.., columns k0.. of the n x n matrix
-// a_i into tile (row stride kRhsDepth+1); entries outside a_i are zeroed.
-// Thread tid copies column k0 + tid%32 of rows tid/32 + 4q.
-__device__ __forceinline__ void copy_tile_async(float* tile, const float* a_i,
-                                                int r0, int k0, int n,
-                                                int tid) {
-  const int kk = tid % kRhsDepth;
-  const int gk = k0 + kk;
-#pragma unroll
-  for (int q = 0; q < kRhsDepth; ++q) {
-    const int rr = tid / kRhsDepth + q * (kRhsThreads / kRhsDepth);
-    const int gr = r0 + rr;
-    const bool inside = gr < n && gk < n;
-    const float* src = inside ? a_i + static_cast<size_t>(gr) * n + gk : a_i;
-    __pipeline_memcpy_async(tile + rr * (kRhsDepth + 1) + kk, src,
-                            sizeof(float), inside ? 0 : sizeof(float));
-  }
-}
-
-__global__ void __launch_bounds__(kRhsThreads)
-rhs_ring_kernel(const float* __restrict__ a, const float* dt_dev,
-                float dt_value, float sign, const float* __restrict__ w,
-                float* __restrict__ out, Coeffs coeffs, int m, int n,
-                int bc) {
-  // [kMaxLevels step scales][kRhsStages tiles][(m+1) levels of
-  // n_pad x bc_pad, row-major, zero outside n x bc]
-  extern __shared__ __align__(16) float smem[];
-  float* scales = smem;
-  float* ring = smem + hermite::kMaxLevels;
-  float* sW = ring + kRhsStages * kTileFloats;
-  const int n_pad = round_up(n, kRhsDepth);
-  const int bc_pad = round_up(bc, kColChunk);
-  const int ktiles = n_pad / kRhsDepth;
-  const size_t level = static_cast<size_t>(n_pad) * bc_pad;
-  const int b = blockIdx.x;
+// Level j of the recursion for rows r0 .. r0+7 of one element:
+// W_{j+1} = 1/(j+1) sum_{i<=j} At_{j-i} W_i into scratch, or, at the last
+// level, out = sum_j c_j W_j. kVec: n % 4 == 0 and the stack 16-byte
+// aligned, so each lane reads its 4 k's of a row as one float4.
+template <bool kVec>
+__global__ void __launch_bounds__(kLevelThreads)
+rhs_level_kernel(const float* __restrict__ a, const float* dt_dev,
+                 float dt_value, float sign, const float* __restrict__ w,
+                 float* __restrict__ scratch, float* __restrict__ out,
+                 Coeffs coeffs, int m, int n, int bc, int j) {
+  __shared__ float part[kLevelWarps][kLevelRows][kColBlock];
+  const int row_tiles = (n + kLevelRows - 1) / kLevelRows;
+  const int b = blockIdx.x / row_tiles;
+  const int r0 = (blockIdx.x - b * row_tiles) * kLevelRows;
+  const int rows = min(kLevelRows, n - r0);
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const size_t nn = static_cast<size_t>(n) * n;
   const float* a_b = a + static_cast<size_t>(b) * m * nn;
-  const float* w_b = w + static_cast<size_t>(b) * n * bc;
 
-  if (tid < m) scales[tid] = step_scale(step_base(dt_dev, dt_value, sign),
-                                        tid);
-  for (size_t e = tid; e < (m + 1) * level; e += kRhsThreads) {
-    const int k = static_cast<int>(e / bc_pad);  // row within level 0
-    const int c = static_cast<int>(e % bc_pad);
-    sW[e] = (e < level && k < n && c < bc)
-                ? w_b[static_cast<size_t>(k) * bc + c] : 0.0f;
-  }
-  __syncthreads();
+  // every byte this block reads of At_0 .. At_j (its rows of each: one
+  // contiguous run) requested into L2 at once, so the loads below wait on
+  // L2, not on device memory; skipped where the level's matrices would
+  // not stay in L2 until read
+  const size_t level_bytes =
+      (j + 1) * nn * sizeof(float) * (gridDim.x / row_tiles);
+  if (kVec && tid == 0 && level_bytes <= kPrefetchBytes)
+    for (int k = 0; k <= j; ++k)
+      hermite::prefetch_l2(a_b + k * nn + static_cast<size_t>(r0) * n,
+                           static_cast<unsigned>(rows * n * sizeof(float)));
 
-  for (int j = 0; j < m; ++j) {
-    float* w_next = sW + static_cast<size_t>(j + 1) * level;
-    const float div = static_cast<float>(j + 1);
-    // tile t of this level: product i = t / ktiles (At_{j-i} W_i),
-    // k-slice t % ktiles
-    const int ntiles = (j + 1) * ktiles;
-    for (int r0 = 0; r0 < n; r0 += kRhsThreads) {
-      for (int cb = 0; cb < bc_pad; cb += kColChunk) {
-        // one commit per tile index, empty past the end, so that
-        // "all but the newest kRhsStages-1 groups done" means "tile t done"
-        auto issue = [&](int t) {
-          if (t < ntiles)
-            copy_tile_async(ring + (t % kRhsStages) * kTileFloats,
-                            a_b + static_cast<size_t>(j - t / ktiles) * nn,
-                            r0, (t % ktiles) * kRhsDepth, n, tid);
-          __pipeline_commit();
-        };
-        for (int t = 0; t < kRhsStages - 1; ++t) issue(t);
-        float acc[kColChunk];
+  const float s = step_base(dt_dev, dt_value, sign);
+  const float div = static_cast<float>(j + 1);
+  const int bp = round_up(bc, kColBlock);
+  const int k_first = kWarpK * warp + 4 * lane;
+  for (int cb = 0; cb < bp; cb += kColBlock) {
+    float acc[kLevelRows][kColBlock];
 #pragma unroll
-        for (int cc = 0; cc < kColChunk; ++cc) acc[cc] = 0.0f;
-        for (int t = 0; t < ntiles; ++t) {
-          issue(t + kRhsStages - 1);  // into the buffer freed at t-1
-          __pipeline_wait_prior(kRhsStages - 1);
-          __syncthreads();  // every thread's copies of tile t have landed
-          const float* row = ring + (t % kRhsStages) * kTileFloats +
-                             tid * (kRhsDepth + 1);
-          const float scale = scales[j - t / ktiles];
-          const float* w_t = sW + static_cast<size_t>(t / ktiles) * level +
-                             static_cast<size_t>(t % ktiles) * kRhsDepth *
-                                 bc_pad + cb;
-#pragma unroll 8
-          for (int kk = 0; kk < kRhsDepth; ++kk) {
-            const float av = row[kk] * scale;
-            const float4* wk = reinterpret_cast<const float4*>(
-                w_t + static_cast<size_t>(kk) * bc_pad);
-            const float4 lo = wk[0];
-            const float4 hi = wk[1];
-            acc[0] = fmaf(av, lo.x, acc[0]);
-            acc[1] = fmaf(av, lo.y, acc[1]);
-            acc[2] = fmaf(av, lo.z, acc[2]);
-            acc[3] = fmaf(av, lo.w, acc[3]);
-            acc[4] = fmaf(av, hi.x, acc[4]);
-            acc[5] = fmaf(av, hi.y, acc[5]);
-            acc[6] = fmaf(av, hi.z, acc[6]);
-            acc[7] = fmaf(av, hi.w, acc[7]);
+    for (int r = 0; r < kLevelRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kColBlock; ++c) acc[r][c] = 0.0f;
+    for (int i = 0; i <= j; ++i) {
+      const float* gA =
+          a_b + static_cast<size_t>(j - i) * nn + static_cast<size_t>(r0) * n;
+      const float scale = step_scale(s, j - i);
+      const float* w_i = rhs_level(w, scratch, b, i, m, n, bc) + cb;
+      for (int k = k_first; k < n; k += kWarpK * kLevelWarps) {
+        // this lane's 4 k's of W_i, 8 columns, zero outside n x bc
+        float wr[4][kColBlock];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int c = 0; c < kColBlock; ++c)
+            wr[q][c] = (k + q < n && cb + c < bc)
+                           ? w_i[static_cast<size_t>(k + q) * bc + c]
+                           : 0.0f;
+        // the same 4 k's of the block's rows: per row, a warp reads 512
+        // contiguous bytes
+        float av[kLevelRows][4];
+#pragma unroll
+        for (int r = 0; r < kLevelRows; ++r) {
+          const float* src = gA + static_cast<size_t>(r) * n + k;
+          if (r >= rows) {
+            av[r][0] = av[r][1] = av[r][2] = av[r][3] = 0.0f;
+          } else if (kVec) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+            av[r][0] = v.x; av[r][1] = v.y; av[r][2] = v.z; av[r][3] = v.w;
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              av[r][q] = k + q < n ? __ldg(src + q) : 0.0f;
           }
-          __syncthreads();  // tile t's buffer may be refilled
         }
-        const int r = r0 + tid;
-        if (r < n) {
 #pragma unroll
-          for (int cc = 0; cc < kColChunk; ++cc)
-            w_next[static_cast<size_t>(r) * bc_pad + cb + cc] = acc[cc] / div;
+        for (int r = 0; r < kLevelRows; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float a_rk = av[r][q] * scale;
+#pragma unroll
+            for (int c = 0; c < kColBlock; ++c)
+              acc[r][c] = fmaf(a_rk, wr[q][c], acc[r][c]);
+          }
+      }
+    }
+    // each row's 8 column sums: across the lanes by shuffles, then across
+    // the warps (each its 128-k slices) through shared memory
+#pragma unroll
+    for (int r = 0; r < kLevelRows; ++r) {
+      const float v = reduce_scatter8(acc[r], lane);
+      if ((lane & 3) == 0) part[warp][r][scatter_col(lane)] = v;
+    }
+    __syncthreads();
+    if (tid < kLevelRows * kColBlock) {
+      const int r = tid / kColBlock;
+      const int c = tid % kColBlock;
+      const int row = r0 + r;
+      const int col = cb + c;
+      float t = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kLevelWarps; ++q) t += part[q][r][c];
+      t = t / div;
+      if (r < rows && col < bc) {
+        const size_t e = static_cast<size_t>(row) * bc + col;
+        if (j + 1 < m) {
+          scratch[(static_cast<size_t>(b) * (m - 1) + j) * n * bc + e] = t;
+        } else {
+          // out = c_0 W_0 + c_1 W_1 + ... + c_m W_m, summed in that order
+          float o = coeffs.c[0] * rhs_level(w, scratch, b, 0, m, n, bc)[e];
+          for (int jj = 1; jj < m; ++jj)
+            o = o + coeffs.c[jj] * rhs_level(w, scratch, b, jj, m, n, bc)[e];
+          out[static_cast<size_t>(b) * n * bc + e] = o + coeffs.c[m] * t;
         }
       }
     }
-    __syncthreads();
-  }
-
-  // out = c_0 W_0 + c_1 W_1 + ... + c_m W_m, summed in that order
-  float* out_b = out + static_cast<size_t>(b) * n * bc;
-  for (int e = tid; e < n * bc; e += kRhsThreads) {
-    const size_t off = static_cast<size_t>(e / bc) * bc_pad + e % bc;
-    float o = coeffs.c[0] * sW[off];
-    for (int jj = 1; jj <= m; ++jj) o = o + coeffs.c[jj] * sW[jj * level + off];
-    out_b[e] = o;
+    __syncthreads();  // partials free for the next column block
   }
 }
 
-// devices where each kernel may use the block's full shared memory
+bool aligned16(const float* a) {
+  return reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
+}
+
+// the stream path takes this shape (m >= 1 assumed); a_aligned: the stack
+// starts on a 16-byte boundary
+bool takes_stream(bool a_aligned, int m, int n, int bc) {
+  return n <= kStreamRows && n % 4 == 0 && a_aligned &&
+         stream_smem(m, n, bc) <= hermite::kMaxSharedBytes;
+}
+
+// devices where each stream kernel may use the block's full shared memory
 unsigned g_stream_smem_set[2] = {0, 0};
-unsigned g_ring_smem_set = 0;
 
 }  // namespace
 
 extern "C" {
 
+// Floats of scratch hermite_rhs_f32 needs for these arguments (a_aligned:
+// the stack starts on a 16-byte boundary): the state levels W_1 .. W_{m-1}
+// of the level path, none on the stream path.
+long long hermite_rhs_scratch_floats(int a_aligned, int batch, int m, int n,
+                                     int bc) {
+  if (m < 2 || takes_stream(a_aligned != 0, m, n, bc)) return 0;
+  return static_cast<long long>(batch) * (m - 1) * n * bc;
+}
+
 // a: (B, m, n, n) stack; dt: one float on the device, or null to use
-// dt_value; the step scales are (sign*dt)^(k+1); w: (B, n, bc);
+// dt_value; the step scales are (sign*dt)^(k+1); w: (B, n, bc); scratch:
+// hermite_rhs_scratch_floats(...) floats (null when that is 0);
 // out: (B, n, bc); coeffs_host: m+1 floats.
 int hermite_rhs_f32(const float* a, const float* dt, float dt_value,
-                    float sign, const float* w, float* out,
+                    float sign, const float* w, float* scratch, float* out,
                     const float* coeffs_host, int batch, int m, int n, int bc,
                     void* stream) {
   if (m < 1 || m > hermite::kMaxLevels || n < 1 || bc < 1 || batch < 1)
     return hermite::kShapeRefused;
   const Coeffs coeffs = hermite::make_coeffs(coeffs_host, m);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t stream_bytes = stream_smem(m, n, bc);
-  if (n <= kStreamRows && n % 4 == 0 &&
-      reinterpret_cast<std::uintptr_t>(a) % 16 == 0 &&
-      stream_bytes <= hermite::kMaxSharedBytes) {
+  if (takes_stream(aligned16(a), m, n, bc)) {
+    const size_t stream_bytes = stream_smem(m, n, bc);
     const bool full = n == kStreamRows && bc <= kColBlock;
     const void* fn =
         full ? reinterpret_cast<const void*>(rhs_stream_kernel<true>)
@@ -498,16 +548,24 @@ int hermite_rhs_f32(const float* a, const float* dt, float dt_value,
           a, dt, dt_value, sign, w, out, coeffs, m, n, bc);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t ring_bytes = ring_smem(m, n, bc);
-  if (ring_bytes > hermite::kMaxSharedBytes) return hermite::kShapeRefused;
-  if (ring_bytes > 48 * 1024) {
-    const cudaError_t err = hermite::allow_full_smem(
-        reinterpret_cast<const void*>(rhs_ring_kernel), &g_ring_smem_set);
+  if (m >= 2 && scratch == nullptr) return hermite::kShapeRefused;
+  const long long blocks =
+      static_cast<long long>(batch) * ((n + kLevelRows - 1) / kLevelRows);
+  if (blocks > 0x7fffffffLL) return hermite::kShapeRefused;
+  const bool vec = n % 4 == 0 && aligned16(a);
+  for (int j = 0; j < m; ++j) {
+    if (vec)
+      rhs_level_kernel<true><<<static_cast<unsigned>(blocks), kLevelThreads,
+                               0, st>>>(a, dt, dt_value, sign, w, scratch,
+                                        out, coeffs, m, n, bc, j);
+    else
+      rhs_level_kernel<false><<<static_cast<unsigned>(blocks), kLevelThreads,
+                                0, st>>>(a, dt, dt_value, sign, w, scratch,
+                                         out, coeffs, m, n, bc, j);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  rhs_ring_kernel<<<batch, kRhsThreads, ring_bytes, st>>>(
-      a, dt, dt_value, sign, w, out, coeffs, m, n, bc);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // extern "C"

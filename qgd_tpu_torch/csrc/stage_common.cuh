@@ -52,6 +52,36 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
+// The same copy with zero fill: src_bytes (0 or 16) of it are read, the
+// rest of the 16 bytes are written as zeros (a masked edge).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 int src_bytes) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes));
+}
+
+// One float, asynchronously, zero when src_bytes is 0 (operands whose
+// rows are not 16-byte aligned).
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                int src_bytes) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes));
+}
+
+// Ask for `bytes` (a multiple of 16, from a 16-byte aligned address) to be
+// brought into L2, without waiting: one instruction for a whole block of
+// rows, so every byte of it is requested at once.
+__device__ __forceinline__ void prefetch_l2(const void* gmem,
+                                            unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(gmem),
+               "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -127,7 +127,10 @@ def load_library() -> ctypes.CDLL:
         lib.hermite_lhs_matrix_f32.argtypes = [p, p, f, f, p, p, p, i, i, i,
                                                p]
         lib.hermite_lhs_matrix_f32.restype = i
-        lib.hermite_rhs_f32.argtypes = [p, p, f, f, p, p, p, i, i, i, i, p]
+        lib.hermite_rhs_f32.argtypes = [p, p, f, f, p, p, p, p, i, i, i, i,
+                                        p]
         lib.hermite_rhs_f32.restype = i
+        lib.hermite_rhs_scratch_floats.argtypes = [i, i, i, i, i]
+        lib.hermite_rhs_scratch_floats.restype = ctypes.c_longlong
         _loaded["lib"] = lib
         return lib

@@ -11,17 +11,20 @@ version, an ``autograd.Function`` and a launch counter.
   At the main-path shape (B=256, n=128, m=2) it is one 128^3 FP32 product
   per matrix, bounded about equally by the FP32 FMA rate and by the bytes
   it must move; one launch per call stages each matrix whole in shared
-  memory and writes the result once.
+  memory and writes the result once. Larger n, and the levels past the
+  first of m >= 3, take one launch per level of 128-row output tiles fed
+  through a ring of asynchronous copies.
 * :func:`hermite_rhs_kernel_call` replaces the Pallas kernel
   ``qgd_tpu/ops/pallas_step.py:91`` (``hermite_rhs_kernel_call``):
   ``A_stack (B, m, n, n)``, ``W (B, n, b)``, scalar ``dt`` -> ``(B, n, b)``
   ``sum_j (sign*dt)^j c_j W_j`` of the recursion on ``W``: the explicit
   half of a step at ``sign = +1`` (the Pallas kernel's only sign), the
   implicit stage applied to ``W`` at ``sign = -1`` (the GMRES operator).
-  HBM-bound (2*b FLOP per element of the stack); one launch per call
-  requests the whole stack at once, stages ``A_0`` in shared memory,
-  streams the rest from L2 and keeps the state levels in shared memory
-  (n <= 128; larger n streams the stack through a ring of tiles).
+  HBM-bound (2*b FLOP per element of the stack). For n <= 128 one launch
+  per call requests the whole stack at once, stages ``A_0`` in shared
+  memory, streams the rest from L2 and keeps the state levels in shared
+  memory; larger n takes one launch per level, each element's rows spread
+  over blocks, with the state levels in a scratch tensor allocated here.
 
 The kernels compute the step scales ``(sign*dt)^(k+1)`` themselves (f32,
 as ``qgd_tpu.ops.pallas_step._scaled_stack``) and multiply each stack
@@ -191,11 +194,21 @@ def _launch_rhs(A_stack: torch.Tensor, W: torch.Tensor, dt, m: int,
     dev = A_stack.device
     dt_t, dt_value = _dt_args(dt, dev)
     with torch.cuda.device(dev):
+        # the level path's state levels W_1 .. W_{m-1}; none on the
+        # stream path (n <= 128), which keeps them in shared memory: the
+        # kernel's own rule, which reads the stack's address only for its
+        # 16-byte alignment
+        floats = lib.hermite_rhs_scratch_floats(
+            int(A_stack.data_ptr() % 16 == 0), B, m, n, b)
+        scratch = (torch.empty(floats, dtype=torch.float32, device=dev)
+                   if floats else None)
         out = torch.empty((B, n, b), dtype=torch.float32, device=dev)
         err = lib.hermite_rhs_f32(
             A_stack.data_ptr(), None if dt_t is None else dt_t.data_ptr(),
-            dt_value, sign, W.data_ptr(), out.data_ptr(), _coeffs_arg(m),
-            B, m, n, b, torch.cuda.current_stream(dev).cuda_stream)
+            dt_value, sign, W.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            _coeffs_arg(m), B, m, n, b,
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hermite_rhs_f32", f"B={B}, m={m}, n={n}, b={b}")
     hermite_rhs_kernel_call.launches += 1
     hermite_rhs_kernel_call.launches_by_sign[sign] += 1

@@ -40,9 +40,9 @@ def _inputs(seed, B, m, n, b, device, scale=0.3):
     return A, W
 
 
-# n <= 128 with n % 4 == 0 takes the staged LHS and resident RHS kernels;
+# n <= 128 with n % 4 == 0 takes the staged LHS and stream RHS kernels;
 # the ragged n = 130 and n = 256 (above the whole-matrix staging limit)
-# take the level-by-level LHS kernel and the ring RHS kernel.
+# take the level kernels of both (one launch per recursion level).
 SHAPES = [(3, 16, 4), (2, 130, 11), (4, 64, 8), (2, 256, 8)]
 
 
@@ -140,12 +140,6 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         # m = 17 is past the kernels' 16 levels (order 32)
         qt.ops.hermite_lhs_matrix_kernel_call(
             torch.zeros((1, 17, 16, 16), device=cuda), 0.1, 17)
-    with pytest.raises(ValueError, match="no kernel takes"):
-        # the ring kernel's state levels alone exceed shared memory
-        big = torch.zeros((1, 6, 2000, 2000), dtype=torch.float32,
-                          device=cuda)
-        qt.ops.hermite_rhs_kernel_call(
-            big, torch.zeros((1, 2000, 8), device=cuda), 0.1, 6)
     with pytest.raises(TypeError):
         qt.ops.hermite_lhs_matrix_kernel_call(A.double(), 0.1, 2)
     with pytest.raises(ValueError):
@@ -155,6 +149,75 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         qt.ops.hermite_rhs_kernel_call(A, W.cpu(), 0.1, 2)
     with pytest.raises(ValueError):
         qt.ops.hermite_rhs_kernel_call(A, W.transpose(-1, -2), 0.1, 2)
+
+
+# (B, m, n, b) whose state levels outgrow a block's shared memory: 2N =
+# 2048 at order 4, 16 columns at 512 levels, orders 10 and 12 at 512
+# levels (the last at a ragged n past 1024)
+WIDE_SHAPES = [(1, 2, 2048, 8), (1, 2, 1024, 16), (1, 5, 1024, 8),
+               (1, 6, 2000, 8)]
+
+
+def _scaled_inputs(seed, B, m, n, b, device):
+    """Entries ~ 1/sqrt(n): the stack's norms stay O(1) at every n."""
+    return _inputs(seed, B, m, n, b, device, scale=1.0 / np.sqrt(n))
+
+
+def test_rhs_kernel_at_wide_shapes(cuda):
+    """The RHS kernel takes every shape with m <= 16: the level path keeps
+    the state levels in device memory, not in shared memory."""
+    dt = torch.tensor(0.1, dtype=torch.float32, device=cuda)
+    for B, m, n, b in WIDE_SHAPES:
+        A, W = _scaled_inputs(30 + m, B, m, n, b, cuda)
+        out = qt.ops.hermite_rhs_kernel_call(A, W, dt, m)
+        torch.cuda.synchronize()
+        assert out.shape == (B, n, b)
+        assert _rel_err(out, sk.rhs_plain(A, W, dt, m)) <= REL_TOL, (B, m, n,
+                                                                     b)
+
+
+def test_lhs_level_kernel_at_large_and_order8_shapes(cuda):
+    """The LHS level kernel at 2N = 1024 (B = 1: 128 x 64 tiles; B = 20:
+    128 x 128) and at order 8 on the main path's width (the staged launch,
+    then levels 2 and 3)."""
+    dt = torch.tensor(0.1, dtype=torch.float32, device=cuda)
+    for B, m, n in [(1, 2, 1024), (20, 2, 1024), (256, 4, 128)]:
+        A, _ = _scaled_inputs(40 + B, B, m, n, 8, cuda)
+        out = qt.ops.hermite_lhs_matrix_kernel_call(A, dt, m)
+        torch.cuda.synchronize()
+        assert _rel_err(out, sk.lhs_matrix_plain(A, dt, m)) <= REL_TOL, (B,
+                                                                         m, n)
+
+
+def test_large_dense_route_on_the_card(cuda):
+    """512 levels (2N = 1024, 8 columns), 4 steps, f32 Schulz with the main
+    path's settings at L = 2 and L = 1: the LHS level kernel and the RHS
+    level kernel inside the route, against float64 LU on the card."""
+    freqs = 2 * np.pi * np.array([4.10336, 4.81831, 7.8447])
+    xi = 2 * np.pi * np.array([0.2198, 0.2252, 0.001])
+    x12, x13, x23 = 2 * np.pi * np.array([0.01, 0.001, 0.001])
+    kerr = np.array([[xi[0], x12, x13], [x12, xi[1], x23],
+                     [x13, x23, xi[2]]])
+
+    def problem(**kw):
+        return qt.DispersiveProblem((8, 8, 8), (2, 2, 2), freqs, freqs, kerr,
+                                    0.4, 4, device=cuda, **kw)
+
+    prob = problem(solver="schulz", dtype="float32", schulz_iters=48,
+                   schulz_warm_budget=0)
+    ctrls = tuple(qt.BSpline2Control(10, 0.4) for _ in range(3))
+    pcof = np.random.default_rng(0).standard_normal((1, 60)) * 0.01
+    rng = np.random.default_rng(1)
+    tgt = rng.standard_normal((512, 8)) + 1j * rng.standard_normal((512, 8))
+    (fj1, fg, _), fgrad = qt.segmented_objective_and_gradient(
+        problem(), ctrls, pcof, tgt, 4)
+    for n_seg, lhs_calls in ((2, 4), (4, 4)):
+        sk.reset_launch_counts()
+        (j1, g, _), grad = qt.segmented_objective_and_gradient(
+            prob, ctrls, pcof, tgt, 4, n_segments=n_seg)
+        assert sk.launch_counts()["hermite_lhs_matrix"] == lhs_calls
+        assert float((j1 + g - fj1 - fg).abs().max()) <= 1e-4
+        assert float((grad - fgrad).norm() / fgrad.norm()) <= 1e-3
 
 
 def test_launch_counters_count_kernel_launches(cuda):
@@ -334,7 +397,7 @@ def test_lbfgs_method_on_the_card(cuda):
 def test_rhs_kernel_at_gmres_shapes(cuda, B, n, transposed):
     """The GMRES operator: the RHS kernel at step sign -1 on the main
     path's stack (B = 256, n = 128), on its transposed stack (the reverse
-    solve's), and at n = 1024 (512 levels, the ring kernel)."""
+    solve's), and at n = 1024 (512 levels, the level path)."""
     A, W = _inputs(23 + n, B, 2, n, 8, cuda, scale=128.0 / n)
     if transposed:
         A = A.transpose(-1, -2).contiguous()

@@ -148,6 +148,28 @@ def test_general_segment_length_matches_jax(solver, L):
         assert _rel(grad[s], pgrad[s]) <= 1e-12
 
 
+def test_order8_segmented_matches_jax():
+    """Order 8 (m = 4: the recursion's levels j >= 2, which the LHS kernel
+    runs as level launches on the card) on the general-L route, f64,
+    nsteps = 9 in 3 segments at the main path's step, S = 2: objective and
+    gradient against JAX at 1e-11 relative (summation order only), one JAX
+    compile for both scenarios. From order 6 on the tables hold the
+    splines' second derivatives, which jump at the knots (every tf/8 for
+    BSpline2Control(10)); an odd step count keeps the interior grid off
+    the knots, where rounding picks the side (at nsteps = 8 the packages
+    part there, 3e-5 in the objective)."""
+    pcof, tgt = _inputs()
+    jprob, jc, tprob, tc = _problems("float64", tf=9 * TF / NSTEPS,
+                                     nsteps=9)
+    (j1, guard, _), grad = qt.segmented_objective_and_gradient(
+        tprob, tc, pcof, tgt, 8, n_segments=3)
+    for s in range(S):
+        (jj1, jg, _), jgrad = j_seg(jprob, jc, jnp.asarray(pcof[s]), tgt, 8,
+                                    n_segments=3)
+        assert _rel(j1[s], jj1) <= 1e-11 and _rel(guard[s], jg) <= 1e-11
+        assert _rel(grad[s], jgrad) <= 1e-11
+
+
 def test_choose_segments_matches_jax():
     """The divisor chosen from the factorization is JAX's, with and
     without a target length (the prefix route's rule), a prime included."""
