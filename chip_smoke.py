@@ -54,8 +54,20 @@ per segment at L = 20 and B = 1 per step at L = 1, and the explicit half)
 held against float64 LU. The wide phase: both kernels against their plain
 versions at shapes whose state levels outgrow a block's shared memory.
 
+The sharded phase (``qgd_tpu_torch.parallel.sharded``): (a) the main
+path's call through ``batched_objective_and_grad`` on a 1 x 1 mesh of one
+NCCL rank against the unsharded call; (c) three ``multichip_train_step``
+steps on that mesh; (b) ``sharded_objective_and_grad`` with the 8 gate
+columns split 4 + 4 over two processes on the one card (gloo carrying
+CUDA tensors: NCCL takes one rank per device), the RHS kernel at b = 4,
+against one process. The utils phase: ``get_histories`` on Rabi (orders 2
+and 4, 3 refinements, Richardson slopes), ``verlet_forward`` on CNOT3
+carried through the Juqbox fields against the order-8 Hermite forward,
+and ``estimate_N_timesteps`` on CNOT3.
+
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --phases kernels,order8,large_dense,gmres_large
+    python3 chip_smoke.py --phases kernels,sharded,utils
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit; exits non-zero, printing no result, without them. Imports no
@@ -66,8 +78,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -135,6 +149,30 @@ LARGE_F64_TOL, TP_TOL = 1e-4, 1e-5
 # and on the automatic rule.
 ORDER8 = 8
 LARGE_L = 20
+# sharded phase. (a) the main path's call on a 1 x 1 mesh of one NCCL rank
+# against the unsharded call: the same arithmetic (a one-rank sum is the
+# identity), so only a library's choice of summation order between two
+# calls could part them. (b) the 8 gate columns split 4 + 4 over two
+# processes on the one card against one process: b = 4 in the RHS kernel
+# and in cuBLAS's products where one process has b = 8, f32 roundoff over
+# 1000 steps. NCCL takes one rank per device, so the two ranks on one card
+# go through gloo, which carries CUDA tensors. (c) TRAIN_STEPS gradient
+# steps at TRAIN_LR (at 1e-4 the mean objective of the 256 scenarios rose
+# at the third step, PERF.md).
+SHARD_OBJ_TOL, SHARD_GRAD_TOL, SPLIT_REL_TOL = 1e-6, 1e-5, 1e-5
+SPLIT_BACKEND = "gloo"
+SPLIT_TIMEOUT_S = 600
+TRAIN_STEPS, TRAIN_LR = 3, 2e-5
+# utils phase: get_histories on Rabi at tf = 2 pi with a constant pulse,
+# orders 2 and 4 from 32 steps, 3 refinements, each order's Richardson
+# slope within tests/test_convergence.py's 0.55 of the order; the
+# Stormer-Verlet baseline on CNOT3 carried through the Juqbox fields, at
+# tf = 20 and 400, 800, 1600 steps against the order-8 Hermite solution
+# at 1600 (slope 2 within the same 0.55); the step estimate at the
+# published horizon with each control at the optimize phase's bound.
+RICH_ORDERS, RICH_REFINE, RICH_BASE = (2, 4), 3, 32
+SLOPE_TOL = 0.55
+VERLET_TF, VERLET_NSTEPS = 20.0, (400, 800, 1600)
 # Shapes no kernel took before the level path of the RHS kernel: (B, m, n,
 # b) = 2N = 2048 at order 4, a 4-qubit gate's 16 columns at 512 levels,
 # order 10 and order 12 at 512 levels (the last ragged past 1024).
@@ -232,6 +270,19 @@ def _cold_ms(fn, flush, calls=20):
         flush()
         fn()
     return _device_ms(pair, calls=calls) - _device_ms(flush, calls=calls)
+
+
+def _device_waits(fn):
+    """``(fn(), waits)``: one call under CUDA's sync debug mode, where each
+    operation that waits for the device warns; ``waits`` counts them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message).lower() for w in caught)
 
 
 def _host_us(fn, calls=200):
@@ -395,6 +446,13 @@ def kernel_phase(prob, controls, pcof, dev, smi):
                          "prefix", "B=275,sign=-1")
     rows += _kernel_rows(A[:PREFIX_L].contiguous(), None, dt, dev, smi,
                          "prefix", "B=275,sign=+1", sign=1.0)
+    del A, W
+    # the sharded phase's (b): one rank's 4 of the 8 gate columns on the
+    # plain route for one control vector: the hoisted LHS build over the
+    # 1000 steps (B = 1000) and the explicit half at b = 4 (B = 1)
+    A, W, dt = _split_stacks(prob, controls, pcof, dev)
+    rows += _kernel_rows(A, W, dt, dev, smi, "sharded", "B=1000",
+                         rhs_tag="B=1,b=4")
     return rows
 
 
@@ -523,6 +581,29 @@ def _optimize_stacks(dev):
     rng = np.random.default_rng(3)
     W = torch.tensor(rng.standard_normal((A.shape[0], 128, 8)),
                      dtype=torch.float32, device=dev)
+    W = W / W.norm(dim=-2, keepdim=True)
+    dt = torch.tensor(prob.tf / prob.nsteps, dtype=torch.float32,
+                      device=dev)
+    return A, W, dt
+
+
+def _split_stacks(prob, controls, pcof, dev):
+    """Generator stacks (T, m, 2N, 2N) of every step's implicit side for
+    the main path's scenario 0, as the plain route's hoisted build hands
+    them to the LHS kernel, and one rank's half of the gate columns (1,
+    2N, 4)."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.forward import _time_grid
+
+    m = ORDER // 2
+    wprob = qt.working_problem(prob)
+    _, ts = _time_grid(prob)
+    P, Q = qt.control_tables(controls, pcof[0], ts[1:], m)
+    A = qt.assemble_generator_stack(wprob, P.float(), Q.float(),
+                                    m).contiguous()
+    rng = np.random.default_rng(4)
+    W = torch.tensor(rng.standard_normal((1, 128, 4)), dtype=torch.float32,
+                     device=dev)
     W = W / W.norm(dim=-2, keepdim=True)
     dt = torch.tensor(prob.tf / prob.nsteps, dtype=torch.float32,
                       device=dev)
@@ -931,9 +1012,6 @@ def optimize_phase(rows, dev, smi):
     """optimize_gate on CNOT3 at nsteps = 5500 with the carrier controls:
     the routes at the start point, OPT_ITERS L-BFGS-B iterations with their
     kernel launches counted, and a save + resume."""
-    import os
-    import tempfile
-
     import qgd_tpu_torch as qt
     from qgd_tpu_torch.ops import stage_kernels as sk
 
@@ -941,17 +1019,9 @@ def optimize_phase(rows, dev, smi):
     kw = dict(ridge_penalty_strength=1e-2)
     oag = lambda p, **k: qt.objective_and_gradient(p, controls, pcof0, tgt,
                                                    ORDER, **kw, **k)
-    # the first call under CUDA's sync debug mode: each operation that
-    # waits for the device warns, so the count shows whether the step
-    # loops (2 x 5500 steps) wait anywhere
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            (j1, g, r), grad = oag(prob)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message).lower() for w in caught)
+    # the first call under CUDA's sync debug mode: the count shows whether
+    # the step loops (2 x 5500 steps) wait anywhere
+    ((j1, g, r), grad), syncs = _device_waits(lambda: oag(prob))
     obj = float(j1 + g + r)
     check(np.isfinite(obj) and bool(torch.isfinite(grad).all()),
           "finite objective and gradient at the start point")
@@ -1613,6 +1683,252 @@ def gmres_large_phase(pcof, rows, dev, smi):
     phase("gmres", f"(c) {time.perf_counter() - t_phase:.1f} s; {smi}")
 
 
+def sharded_phase(prob, controls, pcof, tgt, dev, rows, smi):
+    """parallel.sharded at the main path's width: (a) the batched call on
+    a 1 x 1 mesh of one NCCL rank against the unsharded segmented call,
+    (c) TRAIN_STEPS training steps on that mesh, (b) the gate columns
+    split over two processes on the one card (:func:`_split_worker`)
+    against one process."""
+    import torch.distributed as dist
+
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.ops import stage_kernels as sk
+    from qgd_tpu_torch.parallel import (batched_objective_and_grad,
+                                        initialize_distributed, make_mesh,
+                                        multichip_train_step)
+
+    initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda")
+    try:
+        check(dist.get_backend() == "nccl", "sharded: one NCCL rank")
+        mesh = make_mesh(1, 1)
+        call = lambda: batched_objective_and_grad(
+            prob, controls, pcof, tgt, mesh, ORDER,
+            gradient_method="segmented")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        (vals, grads), waits = _device_waits(call)
+        torch.cuda.synchronize()
+        secs = [time.perf_counter() - t0]
+        counts = sk.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        expected = {"hermite_lhs_matrix": NSTEPS, "hermite_rhs": NSTEPS}
+        check(counts == expected, f"sharded (a) launches {counts} != "
+                                  f"{expected}")
+        check(vals.shape == (SCENARIOS,) and grads.shape == (SCENARIOS, 60)
+              and bool(torch.isfinite(vals).all()
+                       and torch.isfinite(grads).all()),
+              "sharded (a): finite values of the expected shapes")
+        (j1, g, _), grad = qt.segmented_objective_and_gradient(
+            prob, controls, pcof, tgt, ORDER)
+        d_obj, d_grad = _scenario_deltas(vals, grads, j1 + g, grad)
+        phase("sharded", f"(a) batched_objective_and_grad, 1 x 1 mesh of "
+                         f"one NCCL rank, CNOT3 nsteps={NSTEPS} S="
+                         f"{SCENARIOS} f32 segmented route vs the unsharded "
+                         f"call: |d obj| {d_obj:.3e} (<= {SHARD_OBJ_TOL:g}),"
+                         f" |d grad|/|grad| {d_grad:.3e} (<= "
+                         f"{SHARD_GRAD_TOL:g}); seconds per call "
+                         f"{[round(t, 3) for t in secs]} (the first under "
+                         f"sync debug mode), device waits per call {waits},"
+                         f" peak memory {peak / 1e9:.3f} GB, launches per "
+                         f"call {counts}; {smi}")
+        check(d_obj <= SHARD_OBJ_TOL and d_grad <= SHARD_GRAD_TOL,
+              "sharded (a): one NCCL rank vs unsharded")
+
+        step = multichip_train_step(prob, controls, tgt, mesh, ORDER,
+                                    learning_rate=TRAIN_LR,
+                                    gradient_method="segmented")
+        p, means = pcof, []
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            p, v = step(p)
+            means.append(float(v.mean()))
+        sec = (time.perf_counter() - t0) / TRAIN_STEPS
+        phase("sharded", f"(c) multichip_train_step, S={SCENARIOS}, "
+                         f"learning rate {TRAIN_LR:g}, ridge 1e-2: mean "
+                         f"objective per step {[round(m, 9) for m in means]}"
+                         f", {sec:.3f} s per step; {smi}")
+        check(all(b < a for a, b in zip(means, means[1:])),
+              "sharded (c): the mean objective falls")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two processes on the one card, 4 gate columns each
+    with tempfile.TemporaryDirectory() as tmp:
+        port = str(_free_port())
+        outs = [os.path.join(tmp, f"rank{r}.npz") for r in (0, 1)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--split-worker", str(r), port, outs[r]],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in (0, 1)]
+        try:
+            logs = [pr.communicate(timeout=SPLIT_TIMEOUT_S)[0]
+                    for pr in procs]
+        finally:
+            for pr in procs:
+                pr.kill()
+        wall = time.perf_counter() - t0
+        for r, (pr, log) in enumerate(zip(procs, logs)):
+            check(pr.returncode == 0, f"sharded (b): rank {r} exited "
+                                      f"{pr.returncode}:\n{log[-3000:]}")
+        got = [dict(np.load(o)) for o in outs]
+    (j1, g, _), grad = qt.objective_and_gradient(prob, controls, pcof[0],
+                                                 tgt, ORDER)
+    obj = float(j1 + g)
+    d_obj = max(abs(float(r["val"]) - obj) / abs(obj) for r in got)
+    d_grad = max(float(np.linalg.norm(r["grad"] - grad.cpu().numpy())
+                       / float(grad.norm())) for r in got)
+    counts = json.loads(str(got[0]["counts"]))
+    expected = {"hermite_lhs_matrix": 1, "hermite_rhs": NSTEPS}
+    check(all(json.loads(str(r["counts"])) == expected for r in got),
+          f"sharded (b) launches {[str(r['counts']) for r in got]} != "
+          f"{expected}")
+    _set_launches(rows, "sharded", counts)
+    phase("sharded", f"(b) sharded_objective_and_grad, 1 x 2 mesh, two "
+                     f"processes on the one card ({got[0]['backend']}, "
+                     f"CUDA tensors), 4 of the 8 gate columns each, one "
+                     f"control vector, plain route (auto at {NSTEPS} "
+                     f"steps): vs one process |d obj|/|obj| {d_obj:.3e}, "
+                     f"|d grad|/|grad| {d_grad:.3e} (<= {SPLIT_REL_TOL:g}); "
+                     f"seconds per call rank 0 "
+                     f"{[round(float(t), 3) for t in got[0]['secs']]}, rank "
+                     f"1 {[round(float(t), 3) for t in got[1]['secs']]} (the"
+                     f" first under sync debug mode); device waits per call "
+                     f"{[int(r['waits']) for r in got]}; peak memory per "
+                     f"process {[round(float(r['peak']) / 1e9, 3) for r in got]}"
+                     f" GB; launches per call and rank {counts}; both "
+                     f"processes {wall:.1f} s from start to exit; {smi}")
+    check(d_obj <= SPLIT_REL_TOL and d_grad <= SPLIT_REL_TOL,
+          "sharded (b): two processes vs one")
+
+
+def _split_worker(rank, port, out):
+    """One of the two processes of the sharded phase's (b): the main
+    path's problem with 4 of its 8 gate columns on a 1 x 2 mesh over
+    gloo, scenario 0's objective and gradient with the launches of one
+    call, its seconds per call, device waits and peak memory, saved to
+    ``out``."""
+    import torch.distributed as dist
+
+    from qgd_tpu_torch.ops import stage_kernels as sk
+    from qgd_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                        sharded_objective_and_grad)
+
+    initialize_distributed(f"localhost:{port}", 2, rank, device="cuda",
+                           backend=SPLIT_BACKEND)
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        prob, controls, pcof, tgt = _main_setup(dev)
+        mesh = make_mesh(1, 2)
+        call = lambda: sharded_objective_and_grad(prob, controls, pcof[0],
+                                                  tgt, mesh, ORDER)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        (val, grad), waits = _device_waits(call)
+        torch.cuda.synchronize()
+        secs = [time.perf_counter() - t0]
+        counts = sk.launch_counts()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        np.savez(out, val=float(val), grad=grad.cpu().numpy(),
+                 counts=json.dumps(counts), secs=np.array(secs), waits=waits,
+                 peak=torch.cuda.max_memory_allocated(),
+                 backend=dist.get_backend())
+    finally:
+        dist.destroy_process_group()
+
+
+def utils_phase(prob, pcof, dev, smi):
+    """The utilities on the card: the Richardson harness on Rabi, the
+    Stormer-Verlet baseline on CNOT3 carried through the Juqbox fields
+    against the Hermite forward, and the step estimate of CNOT3."""
+    import qgd_tpu_torch as qt
+
+    t0 = time.perf_counter()
+    rabi = qt.construct_rabi_prob(tf=2 * np.pi, nsteps=RICH_BASE, device=dev)
+    pc = np.random.default_rng(2).standard_normal(2) * 0.5 + 0.3
+    res = qt.get_histories(rabi, qt.GRAPEControl(1, rabi.tf), pc,
+                           RICH_REFINE, orders=RICH_ORDERS, verbose=False)
+    slopes = {}
+    for order in RICH_ORDERS:
+        e = res[f"Order {order}"]
+        check(len(e["rel_errs"]) == RICH_REFINE - 1 and all(
+            np.isfinite(h).all() and h.shape == (RICH_BASE + 1, 4, 2)
+            for h in e["histories"]), f"get_histories order {order}")
+        slopes[order] = float(np.log2(e["rel_errs"][0] / e["rel_errs"][1]))
+    phase("utils", f"get_histories, Rabi tf=2 pi, constant pulse, f64 on "
+                   f"the card, nsteps {RICH_BASE}, {2 * RICH_BASE}, "
+                   f"{4 * RICH_BASE}: Richardson errors "
+                   + "; ".join(f"order {o} {res[f'Order {o}']['rel_errs']} "
+                               f"(slope {slopes[o]:.3f}), seconds "
+                               f"{[round(t, 4) for t in res[f'Order {o}']['elapsed']]}"
+                               for o in RICH_ORDERS) + f"; {smi}")
+    check(all(abs(slopes[o] - o) < SLOPE_TOL for o in RICH_ORDERS),
+          f"get_histories: slopes {slopes}")
+
+    npy = lambda x: x.detach().cpu().numpy()
+    N = prob.N_tot_levels
+    juq = qt.convert_juqbox(dict(
+        Hconst=npy(prob.system_sym) + 1j * npy(prob.system_asym),
+        Hsym_ops=list(npy(prob.sym_operators)),
+        Hanti_ops=list(npy(prob.asym_operators)),
+        Uinit=npy(prob.u0) + 1j * npy(prob.v0), T=VERLET_TF,
+        nsteps=VERLET_NSTEPS[-1], N=prob.N_ess_levels,
+        wmat_real=npy(prob.guard_subspace_projector)[:N, :N]), device=dev)
+    check(torch.equal(juq.guard_subspace_projector,
+                      prob.guard_subspace_projector),
+          "convert_juqbox: the guard projector")
+    ctrls = tuple(qt.BSpline2Control(10, VERLET_TF) for _ in range(3))
+    ref = qt.eval_forward(juq, ctrls, pcof[0], 8,
+                          save_every=VERLET_NSTEPS[-1])[-1]
+    errs, v_secs = [], []
+    for ns in VERLET_NSTEPS:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h = qt.models.verlet_forward(dataclasses.replace(juq, nsteps=ns),
+                                     ctrls, pcof[0])
+        torch.cuda.synchronize()
+        v_secs.append(time.perf_counter() - t1)
+        check(h.device == ref.device and h.shape == (ns + 1, 128, 8),
+              "verlet_forward: a history on the card")
+        errs.append(float((h[-1] - ref).norm() / ref.norm()))
+    v_slopes = np.log2(np.array(errs[:-1]) / np.array(errs[1:]))
+    phase("utils", f"verlet_forward, CNOT3 through the Juqbox fields, "
+                   f"tf={VERLET_TF:g}, scenario 0's B-splines, f64 on the "
+                   f"card, nsteps {list(VERLET_NSTEPS)}: relative error vs "
+                   f"the order-8 Hermite forward at {VERLET_NSTEPS[-1]} "
+                   f"steps {errs}, slopes {[round(float(v), 3) for v in v_slopes]}"
+                   f", seconds {[round(t, 3) for t in v_secs]}; {smi}")
+    check(all(abs(v - 2.0) < SLOPE_TOL for v in v_slopes),
+          f"verlet_forward: slopes {v_slopes}")
+
+    amps = [OPT_BOUND] * prob.N_operators
+    n_est = qt.estimate_N_timesteps(prob, amps)
+    H = npy(prob.system_sym) + 1j * npy(prob.system_asym)
+    for a, sym, asym in zip(amps, npy(prob.sym_operators),
+                            npy(prob.asym_operators)):
+        H = H + a * sym + 1j * a * asym
+    shortest = 2 * np.pi / np.abs(np.linalg.eigvals(H)).max()
+    direct = int(np.ceil(prob.tf / shortest * 40))
+    phase("utils", f"estimate_N_timesteps, CNOT3 tf={prob.tf:g}, controls at "
+                   f"{OPT_BOUND:g}: {n_est} steps for 40 per shortest "
+                   f"period ({qt.get_shortest_period(prob, amps):.6f}); "
+                   f"phase {time.perf_counter() - t0:.1f} s; {smi}")
+    check(n_est == direct, f"estimate_N_timesteps {n_est} != {direct}")
+
+
 def _profile_ops(fn):
     """``(host-level aten events, all aten events, device busy ms, wall
     ms)`` of one ``fn()`` call under torch.profiler (after one warm call);
@@ -1651,7 +1967,7 @@ def _free_port() -> int:
 # ``driven_by``) is one of these or a part of one (ROW_PHASE).
 PHASES = ("kernels", "wide", "main", "order8", "large_dense", "segmented",
           "optimize", "prefix", "lbfgs", "forced", "multistart", "gmres",
-          "gmres_large", "trace")
+          "gmres_large", "sharded", "utils", "trace")
 ROW_PHASE = {"gmres_ad": "gmres", "gmres_optimize": "gmres"}
 
 
@@ -1673,6 +1989,20 @@ def _parse_phases(argv):
     return [p for p in PHASES if p in chosen]
 
 
+def _main_setup(dev):
+    """The main path's problem, controls, seed-0 control vectors and
+    seed-1 target."""
+    import qgd_tpu_torch as qt
+
+    prob = qt.cnot3_problem(nsteps=NSTEPS, solver="schulz", dtype="float32",
+                            schulz_iters=48, schulz_warm_budget=0,
+                            device=dev)
+    controls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
+    rng = np.random.default_rng(1)
+    tgt = rng.standard_normal((64, 8)) + 1j * rng.standard_normal((64, 8))
+    return prob, controls, _main_pcof(dev), tgt
+
+
 def main(argv=None):
     phases = _parse_phases(argv)
     t_start = time.perf_counter()
@@ -1681,13 +2011,7 @@ def main(argv=None):
 
     build_phase()
     dev = torch.device("cuda", 0)
-    prob = qt.cnot3_problem(nsteps=NSTEPS, solver="schulz", dtype="float32",
-                            schulz_iters=48, schulz_warm_budget=0,
-                            device=dev)
-    controls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
-    pcof = _main_pcof(dev)
-    rng = np.random.default_rng(1)
-    tgt = rng.standard_normal((64, 8)) + 1j * rng.standard_normal((64, 8))
+    prob, controls, pcof, tgt = _main_setup(dev)
 
     rows, start = [], None
     run = {
@@ -1708,6 +2032,9 @@ def main(argv=None):
         "multistart": lambda: multistart_phase(dev, smi),
         "gmres": lambda: gmres_phase(pcof, tgt, rows, start, dev, smi),
         "gmres_large": lambda: gmres_large_phase(pcof, rows, dev, smi),
+        "sharded": lambda: sharded_phase(prob, controls, pcof, tgt, dev,
+                                         rows, smi),
+        "utils": lambda: utils_phase(prob, pcof, dev, smi),
         "trace": lambda: trace_phase(pcof, tgt, dev, smi),
     }
     for name in phases:
@@ -1734,6 +2061,10 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--split-worker"]:
+        # a process of the sharded phase's (b); its parent checks it
+        _split_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
     try:
         main()
     except Exception as exc:  # report and fail: no phase's failure is hidden

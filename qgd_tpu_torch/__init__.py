@@ -12,7 +12,12 @@ solver with its three preconditioners (``parallel.tp_forward_history``
 shards its levels over a process group), the forced, finite-difference
 and Hessian checks, the objective API, every control family with its own
 native de Boor library, every problem builder of the JAX package, setup
-checkpoints and the stage-residual diagnostic. Control vectors are
+checkpoints and the stage-residual diagnostic, scenario and gate-column
+sharding over ``torch.distributed`` (``parallel``: every gradient route
+takes an ``ic_group`` to sum the column reductions over), the Juqbox
+interchange and Stormer-Verlet baseline, and the analysis utilities
+(``utils``: state helpers, timestep estimates, the Richardson harness,
+the scipy/QuTiP ground truth, plotting). Control vectors are
 batched as a leading tensor dimension. The two Pallas kernels of
 ``qgd_tpu/ops/pallas_step.py`` are hand-written CUDA kernels here
 (``csrc/lhs.cu``, ``csrc/rhs.cu``, wrapped in ``ops/stage_kernels.py``),
@@ -154,6 +159,30 @@ from .models import (  # noqa: E402
     cnot3_carrier_frequencies,
     cnot3_target,
     cnot2_problem,
+    convert_juqbox,
+    convert_to_juqbox,
+    load_juqbox_npz,
+)
+from .controls.hermite import (  # noqa: E402
+    sample_from_controls,
+    construct_pcof_from_sample,
+)
+from . import parallel  # noqa: E402
+from . import native  # noqa: E402
+from . import utils  # noqa: E402
+from .utils import (  # noqa: E402
+    get_populations,
+    target_helper,
+    complex_to_real,
+    real_to_complex,
+    initial_basis,
+    get_shortest_period,
+    estimate_N_timesteps,
+    estimate_timesteps_per_period,
+    richardson_extrap_sol,
+    richardson_extrap_rel_err,
+    get_histories,
+    get_runtime_ratios,
 )
 
 __version__ = "0.1.0"
@@ -260,4 +289,24 @@ __all__ = [
     "cnot3_carrier_frequencies",
     "cnot3_target",
     "cnot2_problem",
+    "convert_juqbox",
+    "convert_to_juqbox",
+    "load_juqbox_npz",
+    "sample_from_controls",
+    "construct_pcof_from_sample",
+    "parallel",
+    "native",
+    "utils",
+    "get_populations",
+    "target_helper",
+    "complex_to_real",
+    "real_to_complex",
+    "initial_basis",
+    "get_shortest_period",
+    "estimate_N_timesteps",
+    "estimate_timesteps_per_period",
+    "richardson_extrap_sol",
+    "richardson_extrap_rel_err",
+    "get_histories",
+    "get_runtime_ratios",
 ]

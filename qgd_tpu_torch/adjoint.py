@@ -49,6 +49,7 @@ from .forward import (
 )
 from .objective import (
     guard_penalty_real,
+    ic_sum,
     objective_value,
     ridge_penalty,
     target_on_device,
@@ -148,13 +149,18 @@ def _solve_lhsT_at_tf(prob, controls, pcof, g, order: int):
 def objective_and_gradient(prob, controls, pcof, target, order: int = 4,
                            cost_type: str = "Infidelity",
                            ridge_penalty_strength: float = 0.0, *,
-                           use_kernels: bool = True):
+                           use_kernels: bool = True, ic_group=None):
     """Objective parts and the Lagrange gradient from one forward solve of
     the plain route. ``pcof`` is ``(S, N_params)`` or ``(N_params,)``.
     Returns ``((j1, guard, ridge), grad)`` in float64, each of ``j1``,
     ``guard``, ``ridge`` ``(S,)`` and ``grad (S, N_params)`` (scalars and
     ``(N_params,)`` for a 1-D ``pcof``), ridge term and its gradient
-    included."""
+    included.
+
+    ``ic_group``: a process group whose ranks each hold some gate columns
+    of ``prob`` and ``target`` (``parallel.sharded``); the infidelity's
+    traces, the guard and the gradient are summed over it, so every rank
+    returns the objective and gradient of all the columns."""
     controls = as_control_tuple(controls)
     pcof, single = _scenario_pcof(prob, pcof)
     pcof = pcof.detach()
@@ -162,12 +168,14 @@ def objective_and_gradient(prob, controls, pcof, target, order: int = 4,
                            use_kernels=use_kernels)
     j1, _ = terminal_cost_and_grad(history[:, -1].to(torch.float64),
                                    target_on_device(prob, target),
-                                   prob.N_ess_levels, cost_type)
-    guard = guard_penalty_real(history, prob.tf / prob.nsteps, prob.tf,
-                               prob.guard_subspace_projector)
+                                   prob.N_ess_levels, cost_type, ic_group)
+    guard = ic_sum(guard_penalty_real(history, prob.tf / prob.nsteps,
+                                      prob.tf, prob.guard_subspace_projector),
+                   ic_group)
     ridge = ridge_penalty(pcof, ridge_penalty_strength)
     grad = _discrete_adjoint_lagrange(prob, controls, pcof, target, order,
-                                      cost_type, history=history)
+                                      cost_type, history=history,
+                                      ic_group=ic_group)
     grad = grad + 2.0 * ridge_penalty_strength * pcof / pcof.shape[-1]
     if single:
         return (j1[0], guard[0], ridge[0]), grad[0]
@@ -175,10 +183,11 @@ def objective_and_gradient(prob, controls, pcof, target, order: int = 4,
 
 
 def _discrete_adjoint_lagrange(prob, controls, pcof, target, order: int,
-                               cost_type: str, history=None):
+                               cost_type: str, history=None, ic_group=None):
     """Hand-structured discrete adjoint for ``pcof (S, N_params)`` (see the
     module docstring); ``history`` is reused from the objective's forward
-    solve when given. Returns ``(S, N_params)`` float64."""
+    solve when given; ``ic_group`` as in :func:`objective_and_gradient`.
+    Returns ``(S, N_params)`` float64."""
     m = order // 2
     dt, ts = _time_grid(prob)
     if history is None:
@@ -187,7 +196,7 @@ def _discrete_adjoint_lagrange(prob, controls, pcof, target, order: int,
     forcing = compute_guard_forcing(prob, history)
     _, g_T = terminal_cost_and_grad(history[:, -1].to(torch.float64),
                                     target_on_device(prob, target),
-                                    prob.N_ess_levels, cost_type)
+                                    prob.N_ess_levels, cost_type, ic_group)
     lam_N = _solve_lhsT_at_tf(prob, controls, pcof, g_T + forcing[:, -1],
                               order)
     lam = eval_adjoint(prob, controls, pcof, lam_N, order, forcing=forcing)
@@ -220,7 +229,7 @@ def _discrete_adjoint_lagrange(prob, controls, pcof, target, order: int,
     (grad,) = torch.autograd.grad(
         (P64, Q64), pcof_leaf,
         (cotP.to(torch.float64), cotQ.to(torch.float64)))
-    return grad
+    return ic_sum(grad, ic_group)
 
 
 def _batched(prob, S: int):

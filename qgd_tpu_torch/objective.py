@@ -2,6 +2,13 @@
 ``qgd_tpu.objective``). States are real-stacked ``(..., 2N, B)``; every
 reduction is over the last two dimensions, so leading scenario dimensions
 pass through. Objectives reduce in float64.
+
+Gate-column sharding: every function here that reduces over the gate
+columns takes ``ic_group``, a ``torch.distributed`` process group whose
+ranks each hold some of the columns (``parallel.sharded``), or ``None``.
+With a group, the column sums are ``all_reduce``d over it in float64
+(:func:`ic_sum`) where the JAX package ``psum``s over its ``ic`` mesh
+axis; with ``None`` nothing changes.
 """
 
 from __future__ import annotations
@@ -55,10 +62,27 @@ def ridge_penalty(pcof, strength: float):
     return strength * torch.sum(pcof * pcof, dim=-1) / pcof.shape[-1]
 
 
+def ic_sum(x, ic_group):
+    """``x`` summed over the ranks of the process group ``ic_group`` in
+    float64 (``x`` itself when ``ic_group`` is None); ``x`` is left as it
+    was."""
+    if ic_group is None:
+        return x
+    import torch.distributed as dist
+
+    total = x.to(torch.float64, copy=True).contiguous()
+    dist.all_reduce(total, group=ic_group)
+    return total
+
+
 def terminal_cost(final_state, target_real, N_ess: int,
-                  cost_type: str = "Infidelity"):
+                  cost_type: str = "Infidelity", ic_group=None):
     """Terminal cost ``J1(w_N)``: ``Infidelity`` (default), ``Tracking``
-    ``0.5 ||w_N - target||^2`` or ``Norm`` ``0.5 ||w_N||^2``."""
+    ``0.5 ||w_N - target||^2`` or ``Norm`` ``0.5 ||w_N||^2``. With
+    ``ic_group`` the value is that of all the group's columns."""
+    if ic_group is not None:
+        return terminal_cost_and_grad(final_state, target_real, N_ess,
+                                      cost_type, ic_group)[0]
     if cost_type == "Infidelity":
         return infidelity_real(final_state, target_real, N_ess)
     if cost_type == "Tracking":
@@ -70,23 +94,33 @@ def terminal_cost(final_state, target_real, N_ess: int,
 
 
 def terminal_cost_and_grad(final_state, target_real, N_ess: int,
-                           cost_type: str = "Infidelity"):
-    """``(J1, dJ1/d final_state)`` in closed form."""
+                           cost_type: str = "Infidelity", ic_group=None):
+    """``(J1, dJ1/d final_state)`` in closed form.
+
+    With ``ic_group`` the rank holds some gate columns of ``final_state``
+    and ``target_real``: the infidelity's traces ``a``, ``b`` are summed
+    over the group before the value and this rank's columns of the
+    gradient are formed (the only coupling between columns is through
+    them); the Tracking and Norm costs are separable by column, so only
+    their value is summed."""
     if cost_type == "Infidelity":
         N_tot = final_state.shape[-2] // 2
         R = target_real
         T = _target_T(target_real, N_tot)
         a = _inner(final_state, R)
         b = _inner(final_state, T)
+        if ic_group is not None:
+            a, b = ic_sum(torch.stack([a, b]), ic_group)
         val = 1.0 - (a * a + b * b) / (N_ess ** 2)
         g = (-2.0 / N_ess ** 2) * (a[..., None, None] * R
                                    + b[..., None, None] * T)
         return val, g
     if cost_type == "Tracking":
         d = final_state - target_real
-        return 0.5 * _inner(d, d), d
+        return ic_sum(0.5 * _inner(d, d), ic_group), d
     if cost_type == "Norm":
-        return 0.5 * _inner(final_state, final_state), final_state
+        return (ic_sum(0.5 * _inner(final_state, final_state), ic_group),
+                final_state)
     raise ValueError(f"Invalid cost type: {cost_type}")
 
 

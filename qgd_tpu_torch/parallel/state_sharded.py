@@ -55,13 +55,7 @@ def make_tp_mesh(n_tp: int, *, device="cuda", init_method: str | None = None,
     ``"tcp://localhost:29500"``), backend NCCL for ``device="cuda"`` and
     gloo for ``device="cpu"``. An initialized default group of the other
     backend raises."""
-    backend = _backend_for(device)
-    if not dist.is_initialized():
-        if init_method is None or rank is None:
-            raise ValueError("torch.distributed is not initialized: pass "
-                             "init_method and rank to set it up")
-        dist.init_process_group(backend, init_method=init_method,
-                                 world_size=n_tp, rank=rank)
+    init_default_group(device, init_method, n_tp, rank)
     _check_backend(None, device)
     world = dist.get_world_size()
     if n_tp > world:
@@ -69,6 +63,27 @@ def make_tp_mesh(n_tp: int, *, device="cuda", init_method: str | None = None,
     if n_tp == world:
         return dist.group.WORLD
     return dist.new_group(list(range(n_tp)))
+
+
+def init_default_group(device, init_method: str | None,
+                       world_size: int | None, rank: int | None,
+                       backend: str | None = None) -> None:
+    """Set up ``torch.distributed``'s default group unless it is up: the
+    ``backend`` given, else NCCL for ``device="cuda"`` and gloo for
+    ``device="cpu"``; ``init_method`` (``"tcp://host:port"``, or
+    ``"env://"`` with ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and
+    ``RANK`` in the environment), the world size and this process's
+    rank."""
+    if dist.is_initialized():
+        return
+    if init_method is None or (rank is None and init_method != "env://"):
+        raise ValueError("torch.distributed is not initialized: pass "
+                         "init_method and rank to set it up")
+    # -1: read from the environment (env://)
+    dist.init_process_group(
+        backend or _backend_for(device), init_method=init_method,
+        world_size=-1 if world_size is None else world_size,
+        rank=-1 if rank is None else rank)
 
 
 def _check_backend(group, device):

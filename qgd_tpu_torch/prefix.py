@@ -43,6 +43,7 @@ from .forward import (
     _warm_budget,
 )
 from .objective import (
+    ic_sum,
     ridge_penalty,
     target_on_device,
     terminal_cost,
@@ -235,14 +236,17 @@ def prefix_objective_and_gradient(prob, controls, pcof, target,
                                   ridge_penalty_strength: float = 0.0,
                                   n_segments: int = 0, *,
                                   use_kernels: bool = True,
-                                  refine_sweeps: int | None = None):
+                                  refine_sweeps: int | None = None,
+                                  ic_group=None):
     """Objective parts and Lagrange gradient with log-depth in-segment
     propagation: the ``((j1, guard, ridge), grad)`` of
     :func:`~qgd_tpu_torch.segmented.segmented_objective_and_gradient`,
     for ``pcof (S, N_params)`` or ``(N_params,)``. ``n_segments=0`` picks
     a segment length near ``max(256, sqrt(T))``. ``refine_sweeps`` sets
     the sweeps folded into the f32 effective inverses (default
-    :data:`REFINE_SWEEPS_F32`); f64 takes exact inverses."""
+    :data:`REFINE_SWEEPS_F32`); f64 takes exact inverses. ``ic_group``
+    sums the infidelity's traces, the guard and the gradient over the
+    ranks that hold the other gate columns, as the segmented route does."""
     controls = as_control_tuple(controls)
     work, pcof, single, n_seg, leaf, P, Q = _prefix_setup(
         prob, controls, pcof, order, n_segments, refine_sweeps, use_kernels,
@@ -254,7 +258,8 @@ def prefix_objective_and_gradient(prob, controls, pcof, target,
     w_final, guard, starts = _forward_pass(work, n_seg, keep="starts")
     w_final64 = w_final.to(torch.float64)
     j1, dj1 = terminal_cost_and_grad(w_final64, target_on_device(prob, target),
-                                     prob.N_ess_levels, cost_type)
+                                     prob.N_ess_levels, cost_type, ic_group)
+    guard = ic_sum(guard, ic_group)
     ridge = ridge_penalty(pcof, ridge_penalty_strength)
 
     # ---------------- terminal condition (as segmented.py) ----------------
@@ -301,6 +306,7 @@ def prefix_objective_and_gradient(prob, controls, pcof, target,
                                    Q_cot, lam, states)
     (grad,) = torch.autograd.grad(
         (P, Q), leaf, (cotP.to(torch.float64), cotQ.to(torch.float64)))
+    grad = ic_sum(grad, ic_group)
     grad = grad + 2.0 * ridge_penalty_strength * pcof / pcof.shape[-1]
     if single:
         return (j1[0], guard[0], ridge[0]), grad[0]

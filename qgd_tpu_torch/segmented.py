@@ -54,6 +54,7 @@ from .forward import (
 )
 from .objective import (
     guard_penalty_real,
+    ic_sum,
     ridge_penalty,
     target_on_device,
     terminal_cost,
@@ -395,7 +396,8 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
                                      ridge_penalty_strength: float = 0.0,
                                      n_segments: int = 0, *,
                                      use_kernels: bool = True,
-                                     refine_sweeps: int | None = None):
+                                     refine_sweeps: int | None = None,
+                                     ic_group=None):
     """Objective parts and gradient for a batch of control vectors, with
     memory bounded by the segment count (module docstring).
 
@@ -410,6 +412,12 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
     versions) on any device. ``refine_sweeps`` sets the refinement sweeps
     of f32 Schulz stage solves (default :data:`REFINE_SWEEPS_F32`); f64
     solves take 4, as in the JAX package.
+
+    ``ic_group``: a process group whose ranks each hold some gate columns
+    of ``prob`` and ``target`` (``parallel.sharded``); the infidelity's
+    traces, the guard and the gradient are summed over it, as
+    ``adjoint.objective_and_gradient`` sums them. The automatic segment
+    count is this rank's: its scenarios and its columns.
     """
     controls = as_control_tuple(controls)
     pcof, single = _scenario_pcof(prob, pcof)
@@ -432,7 +440,8 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
         w_final, guard, starts = _snapshot_pass(work, n_seg, keep=True)
     w_final64 = w_final.to(torch.float64)
     j1, dj1 = terminal_cost_and_grad(w_final64, target_on_device(prob, target),
-                                     prob.N_ess_levels, cost_type)
+                                     prob.N_ess_levels, cost_type, ic_group)
+    guard = ic_sum(guard, ic_group)
     ridge = ridge_penalty(pcof, ridge_penalty_strength)
 
     # ---------------- terminal condition ----------------------------------
@@ -452,6 +461,7 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
     (grad,) = torch.autograd.grad(
         (P, Q), pcof_leaf,
         (cotP.to(torch.float64), cotQ.to(torch.float64)))
+    grad = ic_sum(grad, ic_group)
     grad = grad + 2.0 * ridge_penalty_strength * pcof / pcof.shape[-1]
 
     if single:
@@ -473,11 +483,13 @@ def segmented_objective_value(prob, controls, pcof, target, order: int = 4,
                               ridge_penalty_strength: float = 0.0,
                               n_segments: int = 0, *,
                               use_kernels: bool = True,
-                              refine_sweeps: int | None = None):
+                              refine_sweeps: int | None = None,
+                              ic_group=None):
     """Value only (one forward pass, no adjoint work): ``j1 + guard +
     ridge``, ``(S,)`` float64 (a scalar for a 1-D ``pcof``). The line-search
     probe of ``optimize_gate_multistart(gradient_route="segmented")``; both
-    kernels run at batch S (the LHS kernel at S·L per segment)."""
+    kernels run at batch S (the LHS kernel at S·L per segment).
+    ``ic_group`` as in :func:`segmented_objective_and_gradient`."""
     controls = as_control_tuple(controls)
     pcof, single = _scenario_pcof(prob, pcof)
     pcof = pcof.detach()
@@ -494,6 +506,7 @@ def segmented_objective_value(prob, controls, pcof, target, order: int = 4,
         w_final, guard, _ = _snapshot_pass(work, n_seg, keep=False)
     j1 = terminal_cost(w_final.to(torch.float64),
                        target_on_device(prob, target), prob.N_ess_levels,
-                       cost_type)
-    val = j1 + guard + ridge_penalty(pcof, ridge_penalty_strength)
+                       cost_type, ic_group)
+    val = (j1 + ic_sum(guard, ic_group)
+           + ridge_penalty(pcof, ridge_penalty_strength))
     return val[0] if single else val

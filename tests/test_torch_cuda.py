@@ -430,3 +430,53 @@ def test_gmres_route_on_the_card(cuda):
     g_ad = qt.discrete_adjoint(prob, ctrls, pcof, tgt, 4, method="ad")
     g_la = qt.discrete_adjoint(prob, ctrls, pcof, tgt, 4)
     assert float((g_ad - g_la).norm() / g_la.norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("B", [1, 256])
+def test_rhs_kernel_at_column_split_width(cuda, B):
+    """The explicit half of one rank's gate columns when CNOT3's 8 columns
+    split 4 + 4 over two ranks (``parallel.sharded``): the RHS kernel at
+    b = 4, for one control vector and for the main path's 256."""
+    A, W = _inputs(31 + B, B, 2, 128, 4, cuda, scale=1.0)
+    dt = torch.tensor(0.55, dtype=torch.float32, device=cuda)
+    out = qt.ops.hermite_rhs_kernel_call(A, W, dt, 2)
+    torch.cuda.synchronize()
+    assert _rel_err(out, sk.rhs_plain(A, W, dt, 2)) <= REL_TOL
+
+
+def test_sharded_call_on_one_nccl_rank(cuda):
+    """batched_objective_and_grad on a 1 x 1 mesh of one NCCL rank against
+    the unsharded segmented call on the same control vectors (CNOT3, 20
+    steps, f32): a one-rank sum is the identity, the arithmetic is the
+    same, so only a library's choice of summation order between two calls
+    could part them (chip_smoke.py's gate: 1e-6 on the objective, 1e-5
+    relative on the gradient)."""
+    import socket
+
+    import torch.distributed as dist
+    from qgd_tpu_torch.parallel import (batched_objective_and_grad,
+                                        initialize_distributed, make_mesh)
+
+    if dist.is_initialized():
+        pytest.skip("torch.distributed is already initialized here")
+    prob = qt.cnot3_problem(tf=11.0, nsteps=20, solver="schulz",
+                            dtype="float32", schulz_iters=48,
+                            schulz_warm_budget=0, device=cuda)
+    ctrls = tuple(qt.BSpline2Control(10, 11.0) for _ in range(3))
+    pcof = np.random.default_rng(0).standard_normal((4, 60)) * 0.01
+    tgt = qt.cnot3_target(tf=11.0)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        vals, grads = batched_objective_and_grad(
+            prob, ctrls, pcof, tgt, make_mesh(1, 1), 4,
+            gradient_method="segmented")
+    finally:
+        dist.destroy_process_group()
+    (j1, guard, _), grad = qt.segmented_objective_and_gradient(
+        prob, ctrls, pcof, tgt, 4)
+    assert float((vals - (j1 + guard)).abs().max()) <= 1e-6
+    assert float((grads - grad).norm() / grad.norm()) <= 1e-5

@@ -1,5 +1,6 @@
-"""qgd_tpu_torch imports no JAX, pins full-precision float32 matmuls at
-import, and its GPU smoke script refuses to run without a card."""
+"""qgd_tpu_torch imports no JAX (nor matplotlib, which only its plotting
+functions import on use), pins full-precision float32 matmuls at import,
+and its GPU smoke script refuses to run without a card."""
 
 import json
 import os
@@ -35,6 +36,11 @@ def test_import_pulls_in_no_jax_and_pins_precision():
         "import qgd_tpu_torch.native, qgd_tpu_torch.native.binding\n"
         "import qgd_tpu_torch.ops.gmres, qgd_tpu_torch.ops.preconditioners\n"
         "import qgd_tpu_torch.parallel, qgd_tpu_torch.parallel.state_sharded\n"
+        "import qgd_tpu_torch.parallel.sharded, qgd_tpu_torch.utils\n"
+        "import qgd_tpu_torch.utils.ode_check, qgd_tpu_torch.utils.plotting\n"
+        "import qgd_tpu_torch.utils.visualizer\n"
+        "import qgd_tpu_torch.models.juqbox_io\n"
+        "import qgd_tpu_torch.models.juqbox_verlet\n"
         "print(json.dumps({\n"
         "  'jax': sorted(m for m in sys.modules\n"
         "               if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
@@ -42,11 +48,12 @@ def test_import_pulls_in_no_jax_and_pins_precision():
         "               or m == 'qgd_tpu'),\n"
         "  'tf32_matmul': torch.backends.cuda.matmul.allow_tf32,\n"
         "  'tf32_cudnn': torch.backends.cudnn.allow_tf32,\n"
-        "  'precision': torch.get_float32_matmul_precision()}))\n")
+        "  'precision': torch.get_float32_matmul_precision(),\n"
+        "  'matplotlib': 'matplotlib' in sys.modules}))\n")
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"jax": [], "tf32_matmul": False, "tf32_cudnn": False,
-                   "precision": "highest"}
+                   "precision": "highest", "matplotlib": False}
 
 
 def test_package_source_never_imports_jax():
