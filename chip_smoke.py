@@ -173,6 +173,22 @@ TRAIN_STEPS, TRAIN_LR = 3, 2e-5
 RICH_ORDERS, RICH_REFINE, RICH_BASE = (2, 4), 3, 32
 SLOPE_TOL = 0.55
 VERLET_TF, VERLET_NSTEPS = 20.0, (400, 800, 1600)
+# chunked phase. (a) the optimize phase's setup on the host-chunked route:
+# CHUNK_SEGMENTS segments of 100 steps, chunks of at most CHUNK_CAP steps
+# (11 segments: 5 chunks), against the eager segmented route at the same
+# segment count (the same per-segment arithmetic, the gradient summed over
+# other cuts), both against float64 LU at F64_*_TOL. (b) float64 LU at
+# CHUNK_F64_NSTEPS steps (tf = 55), chunked against segmented. (c) CNOT3 at
+# LONG_NSTEPS steps of dt = 1e-2 on the chunked route, chunks of at most
+# LONG_CAP steps; 10 x as many steps as well if (c)'s rate projects them
+# inside LONG_BUDGET_S. (d) OPT_CHUNK_ITERS L-BFGS-B iterations of
+# optimize_gate(max_dispatch_steps=CHUNK_CAP), saved, and a resume from the
+# files alone.
+CHUNK_SEGMENTS, CHUNK_CAP = 55, 1100
+CHUNK_OBJ_TOL, CHUNK_GRAD_TOL, CHUNK_F64_TOL = 1e-6, 1e-5, 1e-12
+CHUNK_F64_NSTEPS, CHUNK_F64_SEGMENTS, CHUNK_F64_CAP = 550, 10, 110
+LONG_NSTEPS, LONG_CAP, LONG_BUDGET_S = 55_000, 5500, 60.0
+OPT_CHUNK_ITERS = 2
 # Shapes no kernel took before the level path of the RHS kernel: (B, m, n,
 # b) = 2N = 2048 at order 4, a 4-qubit gate's 16 columns at 512 levels,
 # order 10 and order 12 at 512 levels (the last ragged past 1024).
@@ -446,7 +462,18 @@ def kernel_phase(prob, controls, pcof, dev, smi):
                          "prefix", "B=275,sign=-1")
     rows += _kernel_rows(A[:PREFIX_L].contiguous(), None, dt, dev, smi,
                          "prefix", "B=275,sign=+1", sign=1.0)
+    # the chunked phase's (a): one segment's implicit-stage build (B = 100,
+    # the first segment's right endpoints) and the explicit half of one
+    # control vector, both launched by graph replays
+    L = OPT_NSTEPS // CHUNK_SEGMENTS
+    rows += _kernel_rows(A[:L].contiguous(), W[:1], dt, dev, smi, "chunked",
+                         f"B={L},chunked", rhs_tag="B=1,chunked")
     del A, W
+    # its (c): one segment of CNOT3 at LONG_NSTEPS steps (B = 250)
+    A, dt = _long_stacks(dev)
+    rows += _kernel_rows(A, None, dt, dev, smi, "chunked_long",
+                         f"B={A.shape[0]},chunked")
+    del A
     # the sharded phase's (b): one rank's 4 of the 8 gate columns on the
     # plain route for one control vector: the hoisted LHS build over the
     # 1000 steps (B = 1000) and the explicit half at b = 4 (B = 1)
@@ -585,6 +612,38 @@ def _optimize_stacks(dev):
     dt = torch.tensor(prob.tf / prob.nsteps, dtype=torch.float32,
                       device=dev)
     return A, W, dt
+
+
+def _long_problem(dev):
+    """The chunked phase's (c): CNOT3 at LONG_NSTEPS steps (tf = 550, dt =
+    1e-2), f32 Schulz warm 0, the optimize phase's carrier controls."""
+    import qgd_tpu_torch as qt
+
+    prob = qt.cnot3_problem(nsteps=LONG_NSTEPS, solver="schulz",
+                            dtype="float32", schulz_warm_budget=0,
+                            device=dev)
+    return prob, [qt.CarrierControl(qt.BSpline2Control(10, prob.tf), f)
+                  for f in qt.cnot3_carrier_frequencies()]
+
+
+def _long_stacks(dev):
+    """Generator stacks (L, m, 2N, 2N) of the first segment's right
+    endpoints of the chunked phase's (c) at its automatic segment length,
+    as one segment's implicit-stage build hands them to the LHS kernel."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.forward import _time_grid
+
+    prob, controls = _long_problem(dev)
+    _, _, pcof0, _ = _optimize_setup(dev)
+    L = LONG_NSTEPS // qt.choose_segments(LONG_NSTEPS)
+    _, ts = _time_grid(prob)
+    pc = torch.tensor(pcof0, dtype=torch.float64, device=dev)
+    P, Q = qt.control_tables(controls, pc, ts[1:L + 1], ORDER // 2)
+    A = qt.assemble_generator_stack(qt.working_problem(prob), P.float(),
+                                    Q.float(), ORDER // 2).contiguous()
+    dt = torch.tensor(prob.tf / prob.nsteps, dtype=torch.float32,
+                      device=dev)
+    return A, dt
 
 
 def _split_stacks(prob, controls, pcof, dev):
@@ -1327,6 +1386,309 @@ def lbfgs_phase(dev, smi):
     check(worst <= OPT_BOUND, "lbfgs: the bounds hold")
 
 
+def _graph_nodes(fn):
+    """Nodes of a CUDA graph of one ``fn()`` call, as ``cuGraphGetNodes``
+    counts them on a graph kept after its capture; ``None`` where this
+    torch cannot keep one. The capture's launch counts are the
+    caller's to discard."""
+    import ctypes
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    check(err == 0, f"cuGraphGetNodes: CUDA error {err}")
+    return int(count.value)
+
+
+def _chunk_walls(walls):
+    """Seconds per forward and per backward chunk, from ``progress``."""
+    return {ph: [round(w, 4) for p, w in walls if p == ph]
+            for ph in ("fwd", "bwd")}
+
+
+def chunked_phase(rows, start, dev, smi):
+    """The host-chunked route (qgd_tpu_torch.chunked), its segment programs
+    replayed as CUDA graphs: (a) the optimize phase's setup against the
+    eager segmented route at the same segment count and float64 LU, with
+    seconds per evaluation, capture seconds, graph nodes, device waits,
+    peak memory and launches per evaluation; (b) float64 LU, chunked
+    against segmented; (c) the long horizon; (d) optimize_gate(
+    max_dispatch_steps=...) and a resume from its files alone."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch import chunked
+    from qgd_tpu_torch.ops import stage_kernels as sk
+
+    m = ORDER // 2
+    prob, controls, pcof0, tgt = _optimize_setup(dev)
+    L = OPT_NSTEPS // CHUNK_SEGMENTS
+    kw = dict(ridge_penalty_strength=1e-2, n_segments=CHUNK_SEGMENTS)
+    per_eval = {"hermite_lhs_matrix": 2 * CHUNK_SEGMENTS,
+                "hermite_rhs": 2 * OPT_NSTEPS}
+    graphs, walls = chunked.SegmentGraphs(), []
+
+    def run():
+        del walls[:]
+        return qt.chunked_objective_and_gradient(
+            prob, controls, pcof0, tgt, ORDER, max_dispatch_steps=CHUNK_CAP,
+            graphs=graphs, progress=lambda ph, k, n, w: walls.append((ph, w)),
+            **kw)
+
+    # evaluation 0 captures the programs, 1 runs under CUDA's sync debug
+    # mode (device waits), 2 and 3 are timed. Memory: the peak of allocated
+    # tensors above what was allocated when the evaluation started (a
+    # replay allocates nothing: the graphs' memory is in their private
+    # pools, which the growth of reserved memory over the four shows)
+    secs, peaks = [], []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    for i in range(4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        if i == 1:
+            ((j1, g, r), grad), waits = _device_waits(run)
+        else:
+            (j1, g, r), grad = run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        counts = sk.launch_counts()
+        check(counts == per_eval, f"chunked launch counts, evaluation {i}: "
+                                  f"{counts} != {per_eval}")
+        if i == 0:
+            first = graphs.stats()
+    grown = torch.cuda.memory_reserved() - reserved0
+    n_chunks = sum(ph == "fwd" for ph, _ in walls)
+    stats = graphs.stats()
+    check(stats["graphs"] == 2 and stats["replays"] == {
+        "fwd": 4 * CHUNK_SEGMENTS - 1, "bwd": 4 * CHUNK_SEGMENTS - 1},
+        f"chunked: two graphs, replayed for every segment but the first: "
+        f"{stats}")
+    _set_launches(rows, "chunked", counts)
+    for row in rows:
+        if row["phase"] == "chunked":
+            row["launches_per_evaluation"] = row["launches"]
+    prog = graphs.programs(prob, None, m, L, prob)
+    nodes = {"fwd": _graph_nodes(prog._forward),
+             "bwd": _graph_nodes(prog._backward)}
+    sk.reset_launch_counts()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    (sj1, sg, sr), sgrad = qt.segmented_objective_and_gradient(
+        prob, controls, pcof0, tgt, ORDER, **kw)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    seg_peak = torch.cuda.max_memory_allocated() - base
+    seg_counts = sk.launch_counts()
+    check(seg_counts == per_eval, f"segmented launch counts {seg_counts}")
+    obj, sobj = float(j1 + g + r), float(sj1 + sg + sr)
+    sgrad = sgrad.cpu()
+    check(np.isfinite(obj) and bool(torch.isfinite(grad).all()),
+          "chunked: finite objective and gradient")
+    d_obj, d_grad = abs(obj - sobj) / abs(sobj), _grad_rel(grad, sgrad)
+    bitwise = obj == sobj and bool(torch.equal(grad, sgrad))
+    if start is None:
+        prob64 = qt.cnot3_problem(nsteps=OPT_NSTEPS, device=dev)  # f64 lu
+        (fj1, fg, fr), fgrad = qt.objective_and_gradient(
+            prob64, controls, pcof0, tgt, ORDER, ridge_penalty_strength=1e-2)
+        start = dict(obj64=float(fj1 + fg + fr), grad64=fgrad)
+    grad64 = start["grad64"].cpu()
+    d64 = {name: (abs(o - start["obj64"]), _grad_rel(gr, grad64))
+           for name, o, gr in (("chunked", obj, grad),
+                               ("segmented", sobj, sgrad))}
+    steady = float(np.mean(secs[2:]))
+    phase("chunked", f"(a) CNOT3 nsteps={OPT_NSTEPS}, 180 carrier "
+                     f"parameters, start point, {CHUNK_SEGMENTS} segments of "
+                     f"{L}, max_dispatch_steps={CHUNK_CAP}: {n_chunks} chunks;"
+                     f" objective {obj:.9f}; chunked (graphs) vs eager "
+                     f"segmented |d obj|/|obj| {d_obj:.3e} (<= "
+                     f"{CHUNK_OBJ_TOL:g}), |d grad|/|grad| {d_grad:.3e} (<= "
+                     f"{CHUNK_GRAD_TOL:g}), bit-identical {bitwise}; vs f64 "
+                     f"lu (|d obj|, |d grad|/|grad|, <= {F64_OBJ_TOL:g}, "
+                     f"{F64_GRAD_TOL:g}): chunked {d64['chunked'][0]:.3e}, "
+                     f"{d64['chunked'][1]:.3e}, segmented "
+                     f"{d64['segmented'][0]:.3e}, {d64['segmented'][1]:.3e}; "
+                     f"{smi}")
+    phase("chunked", f"(a) seconds per evaluation: chunked first (captures) "
+                     f"{secs[0]:.3f}, under sync debug mode {secs[1]:.3f}, "
+                     f"then {secs[2]:.3f}, {secs[3]:.3f} (mean {steady:.3f},"
+                     f" {steady / (2 * OPT_NSTEPS) * 1e6:.2f} us per step and"
+                     f" pass); eager segmented {seg_s:.3f} "
+                     f"({seg_s / (2 * OPT_NSTEPS) * 1e6:.2f} us per step and "
+                     f"pass; {seg_s / steady:.2f} x the chunked route); "
+                     f"capture {first['capture_seconds']:.3f} s for "
+                     f"{first['graphs']} graphs of {nodes['fwd']} (fwd) and "
+                     f"{nodes['bwd']} (bwd) nodes; device waits per "
+                     f"evaluation {waits} ({n_chunks} forward chunks, "
+                     f"{n_chunks} backward, 1 terminal); seconds per chunk, "
+                     f"last evaluation {_chunk_walls(walls)}; peak memory "
+                     f"above the evaluation's start: chunked "
+                     f"{[round(p / 1e9, 4) for p in peaks]} GB (reserved "
+                     f"memory grew {grown / 1e9:.4f} GB over the four), "
+                     f"segmented {seg_peak / 1e9:.4f} GB; launches per "
+                     f"evaluation {counts} (replays x launches per capture), "
+                     f"graph replays over the 4 evaluations "
+                     f"{stats['replays']}; {smi}")
+    check(d_obj <= CHUNK_OBJ_TOL and d_grad <= CHUNK_GRAD_TOL,
+          "chunked vs segmented")
+    for name, (e_obj, e_grad) in d64.items():
+        check(e_obj <= F64_OBJ_TOL and e_grad <= F64_GRAD_TOL,
+              f"{name} vs f64 lu")
+
+    # (b) float64 LU on the card: the graphs hold the cuSOLVER LU
+    prob_s = qt.cnot3_problem(tf=CHUNK_F64_NSTEPS * 0.1,
+                              nsteps=CHUNK_F64_NSTEPS, device=dev)
+    controls_s = [qt.CarrierControl(qt.BSpline2Control(10, prob_s.tf), f)
+                  for f in qt.cnot3_carrier_frequencies()]
+    kw_s = dict(ridge_penalty_strength=1e-2, n_segments=CHUNK_F64_SEGMENTS)
+    graphs_s = chunked.SegmentGraphs()
+    t0 = time.perf_counter()
+    (cj1, cg, cr), cgrad = qt.chunked_objective_and_gradient(
+        prob_s, controls_s, pcof0, tgt, ORDER,
+        max_dispatch_steps=CHUNK_F64_CAP, graphs=graphs_s, **kw_s)
+    c_s = time.perf_counter() - t0
+    (sj1, sg, sr), sgrad = qt.segmented_objective_and_gradient(
+        prob_s, controls_s, pcof0, tgt, ORDER, **kw_s)
+    cobj, sobj = float(cj1 + cg + cr), float(sj1 + sg + sr)
+    sgrad = sgrad.cpu()
+    e_obj, e_grad = abs(cobj - sobj) / abs(sobj), _grad_rel(cgrad, sgrad)
+    phase("chunked", f"(b) f64 lu, CNOT3 nsteps={CHUNK_F64_NSTEPS} (tf "
+                     f"{prob_s.tf:g}), {CHUNK_F64_SEGMENTS} segments, "
+                     f"max_dispatch_steps={CHUNK_F64_CAP}: chunked vs "
+                     f"segmented |d obj|/|obj| {e_obj:.3e}, |d grad|/|grad| "
+                     f"{e_grad:.3e} (<= {CHUNK_F64_TOL:g}), bit-identical "
+                     f"{cobj == sobj and bool(torch.equal(cgrad, sgrad))}; "
+                     f"graphs {graphs_s.stats()}; first call {c_s:.3f} s; "
+                     f"{smi}")
+    check(graphs_s.stats()["graphs"] == 2, "f64 lu: both programs captured")
+    check(e_obj <= CHUNK_F64_TOL and e_grad <= CHUNK_F64_TOL,
+          "f64 chunked vs segmented")
+
+    # (c) the long horizon, one evaluation (it captures its programs)
+    prob_l, controls_l = _long_problem(dev)
+    S_l = qt.choose_segments(LONG_NSTEPS)
+    L_l = LONG_NSTEPS // S_l
+
+    def long_run(p, cap):
+        walls_l = []
+        graphs_l = chunked.SegmentGraphs()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        (lj1, lg, lr), lgrad = qt.chunked_objective_and_gradient(
+            p, controls_l, pcof0, tgt, ORDER, ridge_penalty_strength=1e-2,
+            max_dispatch_steps=cap, graphs=graphs_l,
+            progress=lambda ph, k, n, w: walls_l.append((ph, w)))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        check(np.isfinite(float(lj1 + lg + lr)) and
+              bool(torch.isfinite(lgrad).all()),
+              f"long horizon {p.nsteps}: finite objective and gradient")
+        return (float(lj1 + lg + lr), sec, walls_l, graphs_l.stats(),
+                torch.cuda.max_memory_allocated() - base, sk.launch_counts())
+
+    obj_l, sec_l, walls_l, st_l, peak_l, counts_l = long_run(prob_l,
+                                                             LONG_CAP)
+    check(counts_l == {"hermite_lhs_matrix": 2 * S_l,
+                       "hermite_rhs": 2 * LONG_NSTEPS},
+          f"long horizon launch counts {counts_l}")
+    _set_launches(rows, "chunked_long", counts_l)
+    for row in rows:
+        if row["phase"] == "chunked_long":
+            row["launches_per_evaluation"] = row["launches"]
+    run_s = sec_l - st_l["capture_seconds"]
+    res = qt.stage_residuals(prob_l, controls_l, pcof0, ORDER, sample=8)
+    phase("chunked", f"(c) CNOT3 nsteps={LONG_NSTEPS} (dt "
+                     f"{prob_l.tf / LONG_NSTEPS:g}), f32, one control vector,"
+                     f" {S_l} segments of {L_l}, max_dispatch_steps="
+                     f"{LONG_CAP}: objective {obj_l:.9f}, {sec_l:.3f} s for "
+                     f"one objective + gradient ({st_l['capture_seconds']:.3f}"
+                     f" s of it capture), seconds per chunk "
+                     f"{_chunk_walls(walls_l)}; peak memory above its start "
+                     f"{peak_l / 1e9:.4f} GB; launches {counts_l}; stage "
+                     f"residual, 8 probes: max {res['max']:.3e} mean "
+                     f"{res['mean']:.3e} (limit {RESIDUAL_LIMIT:g}); "
+                     f"projection (not a measurement) at the reference's "
+                     f"5.5e6 steps: {run_s * 5.5e6 / LONG_NSTEPS / 60:.1f} "
+                     f"min per objective + gradient; {smi}")
+    check(res["max"] <= RESIDUAL_LIMIT, "long horizon: stage residual")
+    if run_s * 10 <= LONG_BUDGET_S:
+        prob_x = dataclasses.replace(prob_l, nsteps=10 * LONG_NSTEPS)
+        obj_x, sec_x, walls_x, st_x, peak_x, counts_x = long_run(
+            prob_x, 10 * LONG_CAP)
+        phase("chunked", f"(c) CNOT3 nsteps={prob_x.nsteps} (dt "
+                         f"{prob_x.tf / prob_x.nsteps:g}): objective "
+                         f"{obj_x:.9f}, {sec_x:.3f} s "
+                         f"({st_x['capture_seconds']:.3f} s capture), "
+                         f"{sum(ph == 'fwd' for ph, _ in walls_x)} chunks, "
+                         f"peak memory above its start {peak_x / 1e9:.4f} "
+                         f"GB; launches "
+                         f"{counts_x}; {smi}")
+    else:
+        phase("chunked", f"(c) {10 * LONG_NSTEPS} steps not run: "
+                         f"{LONG_NSTEPS} took {run_s:.1f} s past capture, "
+                         f"ten times that exceeds {LONG_BUDGET_S:g} s")
+
+    # (d) the optimizer's chunked route, saved and resumed from its files
+    route, calls = chunked.chunked_objective_and_gradient, []
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["max_dispatch_steps"])
+        return route(*args, **kwargs)
+
+    chunked.chunked_objective_and_gradient = spy
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            base = os.path.join(tmp, "cnot3_chunked")
+            sk.reset_launch_counts()
+            hist = qt.optimize_gate(
+                prob, controls, pcof0, tgt, order=ORDER, pcof_L=-OPT_BOUND,
+                pcof_U=OPT_BOUND, maxIter=OPT_CHUNK_ITERS, print_level=0,
+                filename=base, max_dispatch_steps=CHUNK_CAP, **kw)
+            torch.cuda.synchronize()
+            counts = sk.launch_counts()
+            n_eval = len(hist.obj_value)
+            check(calls == [CHUNK_CAP] * n_eval, f"optimize_gate took the "
+                                                 f"chunked route: {calls}")
+            check(counts == {k: v * n_eval for k, v in per_eval.items()},
+                  f"chunked optimize launch counts {counts}")
+            check(n_eval > 1 and min(hist.obj_value[1:]) < hist.obj_value[0],
+                  "chunked optimize: a later objective below the first")
+            del calls[:]
+            resumed = qt.resume_optimization(base, device=dev, maxIter=1,
+                                             print_level=0)
+            torch.cuda.synchronize()
+            more = len(resumed.obj_value) - n_eval
+            check(more > 0 and calls == [CHUNK_CAP] * more,
+                  f"the resumed run took the chunked route: {calls}")
+    finally:
+        chunked.chunked_objective_and_gradient = route
+    ev_secs = np.diff([0.0] + hist.wall_time)
+    phase("chunked", f"(d) optimize_gate(max_dispatch_steps={CHUNK_CAP}, "
+                     f"n_segments={CHUNK_SEGMENTS}), L-BFGS-B maxIter="
+                     f"{OPT_CHUNK_ITERS}: {n_eval} evaluations, objectives "
+                     f"{[round(v, 9) for v in hist.obj_value]}, seconds per "
+                     f"evaluation {[round(float(t), 3) for t in ev_secs]}; "
+                     f"launches {counts}; resume_optimization from the files"
+                     f" alone: {more} more on the chunked route, last "
+                     f"objective {resumed.obj_value[-1]:.9f}; {smi}")
+
+
 def forced_phase(dev, smi):
     """The VERDICT gate in float64 on the card: the general-L segmented
     gradient of Rabi at nsteps = FORCED_NSTEPS (automatic segments) against
@@ -1966,9 +2328,10 @@ def _free_port() -> int:
 # The phases in the order they run; a row's phase (``_kernel_rows``'s
 # ``driven_by``) is one of these or a part of one (ROW_PHASE).
 PHASES = ("kernels", "wide", "main", "order8", "large_dense", "segmented",
-          "optimize", "prefix", "lbfgs", "forced", "multistart", "gmres",
-          "gmres_large", "sharded", "utils", "trace")
-ROW_PHASE = {"gmres_ad": "gmres", "gmres_optimize": "gmres"}
+          "optimize", "prefix", "lbfgs", "chunked", "forced", "multistart",
+          "gmres", "gmres_large", "sharded", "utils", "trace")
+ROW_PHASE = {"gmres_ad": "gmres", "gmres_optimize": "gmres",
+             "chunked_long": "chunked"}
 
 
 def _parse_phases(argv):
@@ -2028,6 +2391,7 @@ def main(argv=None):
         "optimize": lambda: optimize_phase(rows, dev, smi),
         "prefix": lambda: prefix_phase(rows, start, dev, smi),
         "lbfgs": lambda: lbfgs_phase(dev, smi),
+        "chunked": lambda: chunked_phase(rows, start, dev, smi),
         "forced": lambda: forced_phase(dev, smi),
         "multistart": lambda: multistart_phase(dev, smi),
         "gmres": lambda: gmres_phase(pcof, tgt, rows, start, dev, smi),

@@ -6,7 +6,9 @@ What is ported: gate design end to end. The optimizer drivers
 ``optimize_gate_multistart``, batched L-BFGS on the device), the plain
 Lagrange route (forward history, thinned or whole, adjoint sweep,
 ``objective_and_gradient``, ``discrete_adjoint``), the segmented route at
-any segment length and the prefix-product latency route, each with the
+any segment length, its host-chunked form for long horizons (segment
+programs captured once as CUDA graphs and replayed) and the
+prefix-product latency route, each with the
 ``"lu"`` and ``"schulz"`` stage solvers and the matrix-free ``"gmres"``
 solver with its three preconditioners (``parallel.tp_forward_history``
 shards its levels over a process group), the forced, finite-difference
@@ -118,6 +120,7 @@ from .segmented import (  # noqa: E402
     segmented_gradient,
     segmented_objective_value,
 )
+from .chunked import chunked_objective_and_gradient  # noqa: E402
 from .prefix import (  # noqa: E402
     prefix_objective_and_gradient,
     prefix_objective_value,
@@ -255,6 +258,7 @@ __all__ = [
     "segmented_objective_and_gradient",
     "segmented_gradient",
     "segmented_objective_value",
+    "chunked_objective_and_gradient",
     "prefix_objective_and_gradient",
     "prefix_objective_value",
     "eval_forward_prefix",

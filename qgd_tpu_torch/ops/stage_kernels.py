@@ -346,6 +346,26 @@ def reset_launch_counts():
 
 reset_launch_counts()
 
+_WRAPPERS = {"hermite_lhs_matrix": hermite_lhs_matrix_kernel_call,
+             "hermite_rhs": hermite_rhs_kernel_call}
+
+
+def launch_tally() -> dict:
+    """Both counters by step sign: ``{(kernel, sign): n}``."""
+    return {(name, sign): n for name, f in _WRAPPERS.items()
+            for sign, n in f.launches_by_sign.items()}
+
+
+def add_launches(tally: dict, times: int = 1):
+    """Add ``times`` x ``tally`` (a :func:`launch_tally` difference) to the
+    counters: a CUDA graph's replay launches the kernels its capture
+    recorded without calling the wrappers, and the capture launches none
+    of those its wrappers counted (``chunked._SegmentPrograms``)."""
+    for (name, sign), n in tally.items():
+        f = _WRAPPERS[name]
+        f.launches += n * times
+        f.launches_by_sign[sign] += n * times
+
 
 def launch_counts() -> dict:
     """``{"hermite_lhs_matrix": n, "hermite_rhs": n}``."""

@@ -110,12 +110,15 @@ def _check_options(method: str, gradient_route: str,
         raise ValueError(f"unknown method {method!r}")
     if gradient_route not in ("auto", "prefix"):
         raise ValueError(f"unknown gradient_route {gradient_route!r}")
-    if max_dispatch_steps > 0:
-        raise NotImplementedError(
-            "max_dispatch_steps > 0 selects the host-chunked driver "
-            "(qgd_tpu/chunked.py), which exists for a TPU dispatch "
-            "watchdog and is not ported (ROADMAP.md 'Not to port'); the "
-            "segmented route bounds memory on the card")
+    if method == "lbfgs" and max_dispatch_steps > 0:
+        # the JAX package's refusal, kept for parity: there optax's zoom
+        # line search traces its value function, which the host loop of
+        # the chunked route cannot serve
+        raise ValueError(
+            "method='lbfgs' (on-device optax) cannot drive the "
+            "host-chunked evaluator (max_dispatch_steps > 0): the "
+            "zoom linesearch traces its value_fn. Use the default "
+            "method='lbfgsb' for chunked long-horizon runs.")
 
 
 def optimize_gate(prob, controls, pcof_init, target, *, order: int = 4,
@@ -146,6 +149,11 @@ def optimize_gate(prob, controls, pcof_init, target, *, order: int = 4,
     segmented route with that many segments. ``gradient_route="prefix"``
     takes the prefix-product route (:mod:`qgd_tpu_torch.prefix`, the
     single-run latency route; ``n_segments > 0`` sets its segment count).
+    ``max_dispatch_steps > 0`` takes the host-chunked route
+    (:mod:`qgd_tpu_torch.chunked`: at most that many steps per chunk,
+    segment programs replayed as CUDA graphs captured once per run) for
+    every evaluation, with ``n_segments > 0`` as its segment count and
+    the automatic count otherwise; ``method="lbfgsb"`` only, as in JAX.
     The loop stops once the objective drops below ``stop_objective`` or
     the wall time passes ``max_cpu_time``. Returns the
     :class:`OptimizationHistory`.
@@ -192,10 +200,20 @@ def optimize_gate(prob, controls, pcof_init, target, *, order: int = 4,
     if n_segments is None:
         # past ~16k steps the plain route's O(T) hoisted tensors dominate
         n_segments = 0 if prob.nsteps < 16384 else -1
+    if max_dispatch_steps > 0:
+        from .chunked import SegmentGraphs, chunked_objective_and_gradient
+
+        graphs = SegmentGraphs()        # captured once, replayed each time
 
     def value_parts_and_grad(pc):
         pct = torch.as_tensor(pc, dtype=torch.float64, device=prob.device)
-        if gradient_route == "prefix":
+        if max_dispatch_steps > 0:
+            (j1, guard, ridge), grad = chunked_objective_and_gradient(
+                prob, controls, pct, target, order, cost_type=cost_type,
+                ridge_penalty_strength=ridge_penalty_strength,
+                n_segments=max(n_segments, 0),
+                max_dispatch_steps=max_dispatch_steps, graphs=graphs)
+        elif gradient_route == "prefix":
             (j1, guard, ridge), grad = prefix_objective_and_gradient(
                 prob, controls, pct, target, order, cost_type=cost_type,
                 ridge_penalty_strength=ridge_penalty_strength,

@@ -201,12 +201,14 @@ def _table_cotangents(wprob, m: int, w_rhs, w_lhs, P_cot, Q_cot, lam,
 class _Work:
     """What every segmented pass shares: the working problem, the step in
     the work dtype, the tables ``(S, T+1, m, N_ops)`` in the work dtype,
-    the refinement sweeps, the GMRES preconditioner (``solver="gmres"``)
-    and, if ``drift_inverse``, the drift-only inverse that warm-starts the
+    the refinement sweeps, the GMRES preconditioner (``solver="gmres"``),
+    the trapezoid weights ``tau`` of the tables' time points (f64; by
+    default the whole horizon's, 1/2 at both ends) and, if
+    ``drift_inverse``, the drift-only inverse that warm-starts the
     Newton-Schulz inverses (``X0``)."""
 
     def __init__(self, prob, P, Q, m: int, refine_sweeps, use_kernels,
-                 drift_inverse: bool):
+                 drift_inverse: bool, tau=None):
         self.prob, self.m, self.use_kernels = prob, m, use_kernels
         self.dt64 = prob.tf / prob.nsteps
         self.wd = prob.work_dtype
@@ -223,9 +225,10 @@ class _Work:
         self.X0 = (_drift_stage_inverse(self.wprob, m, self.dt)
                    if drift_inverse else None)
         self.precond = _make_preconditioner(prob, self.dt64, 2 * m)
-        tau = torch.ones(prob.nsteps + 1, dtype=torch.float64,
-                         device=prob.device)
-        tau[0] = tau[-1] = 0.5
+        if tau is None:
+            tau = torch.ones(prob.nsteps + 1, dtype=torch.float64,
+                             device=prob.device)
+            tau[0] = tau[-1] = 0.5
         self.tau = tau
 
     def segment(self, a: int, b: int, w_start):
@@ -339,6 +342,47 @@ def _l1_backward(work, traj, lam_T, w_rhs, w_lhs, p_f, q_f):
                              traj)
 
 
+def _segment_backward_step(work, a: int, b: int, w_start, lam_b, X0T,
+                           w_rhs, w_lhs, lam0_scale=None):
+    """One segment of the general-L backward (module docstring), steps
+    ``a..b``: re-forward from ``w_start``, the multiplier sweep from
+    ``lam_b`` (lambda at step b) and the table cotangents ``(S, L, m,
+    N_ops)`` at the segment's L left endpoints. ``lam0_scale``, if given,
+    multiplies lambda at step a before the cotangents are formed (0 for
+    the segment that starts at t_0, whose state is fixed). Returns
+    ``(lambda_a, cotP, cotQ)``."""
+    m, L = work.m, b - a
+    hist = work.segment(a, b, w_start)                       # re-forward
+    f_seg = work.forcing(hist[:, :-1], a)
+    R, Lm = _hoisted_stage_pairs(work.wprob, m, work.dt, work.Pw[:, a:b],
+                                 work.Qw[:, a:b])
+    LT = Lm.transpose(-1, -2)
+    del Lm
+    if work.schulz:
+        XT = _hoisted_inverses(work.wprob, m, work.dt, LT, X0=X0T)
+
+        def solve(i, mu):
+            return inverse_stage_solve(LT[:, i], XT[:, i], mu, work.sweeps)
+    else:
+        lu, piv = factorize_stages(LT)
+
+        def solve(i, mu):
+            return solve_factored(lu[:, i], piv[:, i], mu)
+
+    lam_seg = torch.empty_like(hist)            # lam_seg[:, i] = lam_{a+i}
+    lam_seg[:, L] = lam_b
+    lam = lam_b
+    for i in range(L - 1, -1, -1):
+        lam = solve(i, R[:, i].transpose(-1, -2) @ lam + f_seg[:, i])
+        lam_seg[:, i] = lam
+    if lam0_scale is not None:
+        lam_seg[:, 0] *= lam0_scale
+    cotP, cotQ = _table_cotangents(work.wprob, m, w_rhs, w_lhs,
+                                   work.Pw[:, a:b], work.Qw[:, a:b], lam_seg,
+                                   hist)
+    return lam_seg[:, 0], cotP, cotQ
+
+
 def _segment_backward(work, n_seg: int, starts, w_final, lam_T, w_rhs,
                       w_lhs, p_f, q_f):
     """The general-L backward (module docstring): the table cotangents
@@ -354,36 +398,10 @@ def _segment_backward(work, n_seg: int, starts, w_final, lam_T, w_rhs,
     lam_b = lam_T
     for k in range(n_seg - 1, -1, -1):
         a, b = k * L, (k + 1) * L
-        hist = work.segment(a, b, starts[:, k])              # re-forward
-        f_seg = work.forcing(hist[:, :-1], a)
-        R, Lm = _hoisted_stage_pairs(work.wprob, m, work.dt,
-                                     work.Pw[:, a:b], work.Qw[:, a:b])
-        LT = Lm.transpose(-1, -2)
-        del Lm
-        if work.schulz:
-            XT = _hoisted_inverses(work.wprob, m, work.dt, LT, X0=X0T)
-
-            def solve(i, mu):
-                return inverse_stage_solve(LT[:, i], XT[:, i], mu,
-                                           work.sweeps)
-        else:
-            lu, piv = factorize_stages(LT)
-
-            def solve(i, mu):
-                return solve_factored(lu[:, i], piv[:, i], mu)
-
-        lam_seg = torch.empty_like(hist)        # lam_seg[:, i] = lam_{a+i}
-        lam_seg[:, L] = lam_b
-        lam = lam_b
-        for i in range(L - 1, -1, -1):
-            lam = solve(i, R[:, i].transpose(-1, -2) @ lam + f_seg[:, i])
-            lam_seg[:, i] = lam
-        if k == 0:
-            lam_seg[:, 0] = 0.0     # the initial state is fixed
-        cotP[:, a:b], cotQ[:, a:b] = _table_cotangents(
-            work.wprob, m, w_rhs, w_lhs, work.Pw[:, a:b], work.Qw[:, a:b],
-            lam_seg, hist)
-        lam_b = lam_seg[:, 0]
+        # the initial state is fixed: lambda_0 carries no multiplier
+        lam_b, cotP[:, a:b], cotQ[:, a:b] = _segment_backward_step(
+            work, a, b, starts[:, k], lam_b, X0T, w_rhs, w_lhs,
+            0.0 if k == 0 else None)
     # terminal index T: only the LHS term survives (no step starts at T)
     cotP[:, T], cotQ[:, T] = _table_cot(work.wprob, m, p_f, q_f, w_final,
                                         -w_lhs * lam_T[:, None])

@@ -480,3 +480,75 @@ def test_sharded_call_on_one_nccl_rank(cuda):
         prob, ctrls, pcof, tgt, 4)
     assert float((vals - (j1 + guard)).abs().max()) <= 1e-6
     assert float((grads - grad).norm() / grad.norm()) <= 1e-5
+
+
+def test_chunked_route_replays_graphs(cuda):
+    """The chunked route on a CNOT3 slice (48 steps, f32 Schulz, 6
+    segments of 8 in chunks of 2): each segment program captured once and
+    replayed for every later segment and evaluation, against the eager
+    segmented route (chip_smoke.py's gate: 1e-6 and 1e-5 relative). The
+    launch counters count the replays' launches: 2 LHS per segment
+    (forward and re-forward) and 2 RHS per step in each evaluation, the
+    capture itself none. GMRES runs its programs eagerly: its least
+    squares is an SVD, which no graph can capture."""
+    from qgd_tpu_torch.chunked import SegmentGraphs
+    from qgd_tpu_torch.ops.gmres import _lstsq_min_norm
+
+    prob, ctrls, pcof, tgt = _cnot3_slice(cuda, 48)
+    kw = dict(n_segments=6, ridge_penalty_strength=1e-2)
+    graphs = SegmentGraphs()
+    for _ in range(2):
+        sk.reset_launch_counts()
+        (j1, g, r), grad = qt.chunked_objective_and_gradient(
+            prob, ctrls, pcof[0], tgt, 4, max_dispatch_steps=16,
+            graphs=graphs, **kw)
+        assert sk.launch_counts() == {"hermite_lhs_matrix": 12,
+                                      "hermite_rhs": 96}
+    stats = graphs.stats()
+    assert stats["graphs"] == 2 and stats["replays"] == {"fwd": 11, "bwd": 11}
+    (sj1, sg, sr), sgrad = qt.segmented_objective_and_gradient(
+        prob, ctrls, pcof[0], tgt, 4, **kw)
+    obj, sobj = float(j1 + g + r), float(sj1 + sg + sr)
+    assert abs(obj - sobj) <= 1e-6 * abs(sobj)
+    assert float((grad - sgrad.cpu()).norm() / sgrad.norm()) <= 1e-5
+
+    H = torch.randn(1, 5, 4, device=cuda)
+    beta = torch.ones(1, device=cuda)
+    _lstsq_min_norm(H, beta)
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            _lstsq_min_norm(H, beta)
+    gprob = qt.cnot3_problem(tf=0.55 * 48, nsteps=48, solver="gmres",
+                             gmres_iters=8, preconditioner_type="diagonal",
+                             dtype="float32", device=cuda)
+    graphs = SegmentGraphs()
+    (j1, g, r), grad = qt.chunked_objective_and_gradient(
+        gprob, ctrls, pcof[0], tgt, 4, max_dispatch_steps=16, graphs=graphs,
+        **kw)
+    assert graphs.stats()["graphs"] == 0
+    (sj1, sg, sr), sgrad = qt.segmented_objective_and_gradient(
+        gprob, ctrls, pcof[0], tgt, 4, **kw)
+    assert abs(float(j1 + g + r) - float(sj1 + sg + sr)) <= 1e-6
+    assert float((grad - sgrad.cpu()).norm() / sgrad.norm()) <= 1e-5
+
+
+def test_chunked_route_float64_on_the_card(cuda):
+    """float64 LU on the card (the graphs hold cuSOLVER's LU): the chunked
+    route against the eager segmented route within 1e-12 relative, as the
+    JAX package pins its own chunked route on the CPU (about 1e-14)."""
+    from qgd_tpu_torch.chunked import SegmentGraphs
+
+    prob = qt.cnot3_problem(tf=0.55 * 48, nsteps=48, device=cuda)
+    ctrls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
+    pcof = np.random.default_rng(0).standard_normal(60) * 0.01
+    tgt = qt.cnot3_target(tf=prob.tf)
+    kw = dict(n_segments=12, ridge_penalty_strength=1e-2)
+    graphs = SegmentGraphs()
+    (j1, g, r), grad = qt.chunked_objective_and_gradient(
+        prob, ctrls, pcof, tgt, 4, segments_per_chunk=3, graphs=graphs, **kw)
+    assert graphs.stats()["graphs"] == 2
+    (sj1, sg, sr), sgrad = qt.segmented_objective_and_gradient(
+        prob, ctrls, pcof, tgt, 4, **kw)
+    for x, ref in ((j1, sj1), (g, sg), (r, sr)):
+        assert abs(float(x) - float(ref)) <= 1e-12 * abs(float(ref))
+    assert float((grad - sgrad.cpu()).norm() / sgrad.norm()) <= 1e-12

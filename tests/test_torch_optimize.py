@@ -105,11 +105,13 @@ def test_segmented_route_of_optimize_gate():
 
 
 def test_unported_options_raise():
+    """``max_dispatch_steps`` takes the chunked route now (ported); unknown
+    methods and routes still raise."""
     tprob, tc = _rabi(qt)
     p0 = np.array([0.4, 0.1])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        qt.optimize_gate(tprob, tc, p0, SWAP, print_level=0,
-                         max_dispatch_steps=10)
+    h = qt.optimize_gate(tprob, tc, p0, SWAP, print_level=0, maxIter=2,
+                         n_segments=4, max_dispatch_steps=10)
+    assert np.all(np.isfinite(h.obj_value)) and len(h.obj_value) >= 2
     for kw in (dict(method="newton"), dict(gradient_route="chunked")):
         with pytest.raises(ValueError):
             qt.optimize_gate(tprob, tc, p0, SWAP, print_level=0, **kw)

@@ -134,15 +134,14 @@ def _case_sampling():
 
 def _case_exports():
     """Every public name of the JAX package (top level, models, parallel,
-    utils) has its twin in the port, but the TPU-only chunked route."""
+    utils) has its twin in the port."""
     import qgd_tpu.parallel
 
     for jmod, tmod in ((qgd_tpu, qt), (qgd_tpu.models, qt.models),
                        (qgd_tpu.parallel, qt.parallel),
                        (qgd_tpu.utils, qt.utils)):
         missing = set(jmod.__all__) - set(tmod.__all__)
-        assert missing == ({"chunked_objective_and_gradient"}
-                           if jmod is qgd_tpu else set()), missing
+        assert missing == set(), missing
         assert all(hasattr(tmod, n) for n in tmod.__all__)
     return [], 0.0
 
