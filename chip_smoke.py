@@ -11,7 +11,14 @@ The main path: the CNOT3 objective + exact discrete-adjoint gradient
 columns, order 4, three BSpline2Control(10) pulses = 60 parameters,
 nsteps = 1000, tf = 550), solver="schulz" with warm budget 0 and 3 f32
 refinement sweeps, segment length 1, f32 propagation with f64 reductions,
-for 256 control-vector scenarios.
+for 256 control-vector scenarios: per step the LHS and RHS kernels in the
+forward and the pair kernel (the backward's R and L from one recursion)
+in the backward, the step loops in blocks of 100 steps, each block
+program captured once as a CUDA graph and replayed. The main phase keeps
+one SegmentGraphs across four calls (the first captures, the second runs
+under CUDA's sync debug mode), holds every replayed call bit for bit to
+the capturing one and reports capture seconds, graph nodes, device
+waits and memory.
 
 The optimize phase: ``optimize_gate`` (scipy L-BFGS-B, 3 iterations, the
 plain Lagrange route: one hoisted LHS launch at B = nsteps and one RHS
@@ -24,9 +31,9 @@ at the start point, and a save + resume of the run. The multistart phase:
 CNOT3 at nsteps = 1000, 2 iterations.
 
 The segmented phase: the main path's call at segment length L = 40
-(``choose_segments(1000)``: re-forward per segment, the LHS kernel at
-B = 256 x 40) against L = 1, with seconds per call and peak memory of
-both, then CNOT3 at nsteps = 5500 with 256 scenarios on the automatic
+(``choose_segments(1000)``: re-forward per segment, the LHS and pair
+kernels at B = 256 x 40, segment programs replayed as CUDA graphs)
+against L = 1, with the main phase's graph report, then CNOT3 at nsteps = 5500 with 256 scenarios on the automatic
 segment rule. The prefix phase: ``optimize_gate(gradient_route=
 "prefix")`` on the optimize phase's setup (the LHS kernel at B = 275 per
 segment, both signs), its gradient at the start point held against the
@@ -175,9 +182,10 @@ SLOPE_TOL = 0.55
 VERLET_TF, VERLET_NSTEPS = 20.0, (400, 800, 1600)
 # chunked phase. (a) the optimize phase's setup on the host-chunked route:
 # CHUNK_SEGMENTS segments of 100 steps, chunks of at most CHUNK_CAP steps
-# (11 segments: 5 chunks), against the eager segmented route at the same
-# segment count (the same per-segment arithmetic, the gradient summed over
-# other cuts), both against float64 LU at F64_*_TOL. (b) float64 LU at
+# (11 segments: 5 chunks), against the segmented route at the same
+# segment count (the same segment programs, captured within its one call;
+# the gradient summed over other cuts), both against float64 LU at
+# F64_*_TOL. (b) float64 LU at
 # CHUNK_F64_NSTEPS steps (tf = 55), chunked against segmented. (c) CNOT3 at
 # LONG_NSTEPS steps of dt = 1e-2 on the chunked route, chunks of at most
 # LONG_CAP steps; 10 x as many steps as well if (c)'s rate projects them
@@ -414,12 +422,15 @@ def kernel_phase(prob, controls, pcof, dev, smi):
     phase("kernels", "autograd backward on CUDA vs plain VJP <= 1e-4")
 
     A, W, dt = _main_path_stacks(prob, controls, pcof, dev)
-    rows = _kernel_rows(A, W, dt, dev, smi, "main")
+    # the main path's shapes: both forward kernels at B = 256 and the
+    # backward's pair at the same batch (one launch per backward step)
+    rows = _kernel_rows(A, W, dt, dev, smi, "main", pair=True)
     # the order8 phase's: the main path at order 8 (m = 4), the LHS as the
     # staged launch plus levels 2 and 3
     A8, _, _ = _main_path_stacks(prob, controls, pcof, dev, order=ORDER8)
     rows += _kernel_rows(A8, W, dt, dev, smi, "order8", "B=256,m=4",
-                         rhs_tag="B=256,m=4")
+                         rhs_tag="B=256,m=4", pair=True,
+                         pair_tag="B=256,m=4")
     del A8
     # the gmres phase's shapes: the GMRES operator (RHS kernel at sign -1)
     # on the main path's stacks, on their transposed copy (the reverse
@@ -437,16 +448,19 @@ def kernel_phase(prob, controls, pcof, dev, smi):
     # one step (L = 1, the automatic rule) and at one segment of L =
     # LARGE_L (B = 20), and its explicit half
     rows += _kernel_rows(A, W, dt, dev, smi, "large_dense", "B=1,n=1024",
-                         rhs_tag="B=1,n=1024,sign=+1")
+                         rhs_tag="B=1,n=1024,sign=+1", pair=True,
+                         pair_tag="B=1,n=1024")
     del A, W
     A, _, dt = _large_stacks(dev, steps=LARGE_L)
     rows += _kernel_rows(A, None, dt, dev, smi, "large_dense",
-                         f"B={LARGE_L},n=1024")
+                         f"B={LARGE_L},n=1024", pair=True,
+                         pair_tag=f"B={LARGE_L},n=1024")
     del A
     # the segmented phase's shape: one segment's implicit-stage build at
-    # L = 40 for the 256 scenarios (B = 10240)
+    # L = 40 for the 256 scenarios (B = 10240), and its backward's pair
     A, dt = _segment_stacks(prob, controls, pcof, dev)
-    rows += _kernel_rows(A, None, dt, dev, smi, "segmented", "B=10240")
+    rows += _kernel_rows(A, None, dt, dev, smi, "segmented", "B=10240",
+                         pair=True, pair_tag="B=10240")
     del A
     # the optimize phase's shapes: the hoisted LHS build over all 5500
     # steps (B = 5500) and the explicit half of one control vector (B = 1);
@@ -454,12 +468,23 @@ def kernel_phase(prob, controls, pcof, dev, smi):
     # L = 275 (B = 275)
     A, W, dt = _optimize_stacks(dev)
     rows += _kernel_rows(A, W[:1], dt, dev, smi, "optimize", "B=5500")
+    # its adjoint's pairs at the nsteps - 1 interior points, hoisted: one
+    # launch at B = 5499
+    rows += _kernel_rows(A[:-1].contiguous(), None, dt, dev, smi,
+                         "optimize", lhs=False, pair=True,
+                         pair_tag=f"B={OPT_NSTEPS - 1}")
     # the gmres phase's optimize_gate: the GMRES operator of one control
     # vector (B = 1)
     rows += _kernel_rows(A, W[:1], dt, dev, smi, "gmres_optimize",
                          lhs=False, rhs_sign=-1.0, rhs_tag="B=1,sign=-1")
+    # and its adjoint's pair of one control vector per step (GMRES hoists
+    # no stage)
+    rows += _kernel_rows(A[:1].contiguous(), None, dt, dev, smi,
+                         "gmres_optimize", lhs=False, pair=True,
+                         pair_tag="B=1")
     rows += _kernel_rows(A[:PREFIX_L].contiguous(), None, dt, dev, smi,
-                         "prefix", "B=275,sign=-1")
+                         "prefix", "B=275,sign=-1", pair=True,
+                         pair_tag="B=275")
     rows += _kernel_rows(A[:PREFIX_L].contiguous(), None, dt, dev, smi,
                          "prefix", "B=275,sign=+1", sign=1.0)
     # the chunked phase's (a): one segment's implicit-stage build (B = 100,
@@ -467,12 +492,14 @@ def kernel_phase(prob, controls, pcof, dev, smi):
     # control vector, both launched by graph replays
     L = OPT_NSTEPS // CHUNK_SEGMENTS
     rows += _kernel_rows(A[:L].contiguous(), W[:1], dt, dev, smi, "chunked",
-                         f"B={L},chunked", rhs_tag="B=1,chunked")
+                         f"B={L},chunked", rhs_tag="B=1,chunked", pair=True,
+                         pair_tag=f"B={L},chunked")
     del A, W
     # its (c): one segment of CNOT3 at LONG_NSTEPS steps (B = 250)
     A, dt = _long_stacks(dev)
     rows += _kernel_rows(A, None, dt, dev, smi, "chunked_long",
-                         f"B={A.shape[0]},chunked")
+                         f"B={A.shape[0]},chunked", pair=True,
+                         pair_tag=f"B={A.shape[0]},chunked")
     del A
     # the sharded phase's (b): one rank's 4 of the 8 gate columns on the
     # plain route for one control vector: the hoisted LHS build over the
@@ -480,6 +507,9 @@ def kernel_phase(prob, controls, pcof, dev, smi):
     A, W, dt = _split_stacks(prob, controls, pcof, dev)
     rows += _kernel_rows(A, W, dt, dev, smi, "sharded", "B=1000",
                          rhs_tag="B=1,b=4")
+    rows += _kernel_rows(A[:-1].contiguous(), None, dt, dev, smi,
+                         "sharded", lhs=False, pair=True,
+                         pair_tag=f"B={NSTEPS - 1}")
     return rows
 
 
@@ -670,27 +700,30 @@ def _split_stacks(prob, controls, pcof, dev):
 
 
 def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
-                 lhs=True, rhs_sign=1.0, rhs_tag=None):
+                 lhs=True, rhs_sign=1.0, rhs_tag=None, pair=False,
+                 pair_tag=None):
     """One JSON row per kernel at these inputs: LHS on ``A`` (B, m, n, n)
     with step sign ``sign`` (-1: the implicit-stage matrix LHS(t), +1: the
     explicit-side R(t)) unless ``lhs`` is false, RHS on ``A[:B_rhs]`` and
     ``W`` (B_rhs, n, b) with step sign ``rhs_sign`` (+1: the explicit
-    half, -1: the GMRES operator) unless ``W`` is None. ``driven_by`` names
-    the phase whose launches the rows report; ``tag`` (``rhs_tag``, default
-    ``B=...``) is appended to the names of a second shape's LHS (RHS)
-    rows."""
+    half, -1: the GMRES operator) unless ``W`` is None, and with ``pair``
+    the backward's pair (R, L) on ``A``. ``driven_by`` names the phase
+    whose launches the rows report; ``tag`` (``rhs_tag``, ``pair_tag``,
+    default ``B=...``) is appended to the names of a second shape's LHS
+    (RHS, pair) rows."""
     from qgd_tpu_torch.ops import stage_kernels as sk
 
     m = A.shape[1]
     n = A.shape[-1]
     f32 = 4
     B_l = A.shape[0]
-    # what each function must do: the LHS m(m-1)/2 products of n^3 per
-    # matrix (level j has j), the RHS m(m+1)/2 products of n^2 b; each input
-    # read once, each output written once
-    work = {} if not lhs else {
-        "hermite_lhs_matrix": (m * (m - 1) // 2 * 2 * n ** 3 * B_l,
-                               (A.numel() + B_l * n * n) * f32)}
+    # what each function must do: the LHS (and the pair) m(m-1)/2 products
+    # of n^3 per matrix (level j has j), the RHS m(m+1)/2 products of n^2
+    # b; each input read once, each output written once (the pair's two)
+    products = m * (m - 1) // 2 * 2 * n ** 3 * B_l
+    work = {"hermite_lhs_matrix": (products, (A.numel() + B_l * n * n) * f32),
+            "hermite_stage_pair": (products,
+                                   (A.numel() + 2 * B_l * n * n) * f32)}
     if W is not None:
         b = W.shape[-1]
         Ar = A[:W.shape[0]].contiguous()
@@ -706,6 +739,12 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
                                                                 sign),
                       lambda: sk.lhs_matrix_plain(A, dt, m, sign),
                       yardstick, B_l, is_chain))
+    if pair:
+        cases.append(("hermite_stage_pair", "qgd_tpu_torch/csrc/pair.cu",
+                      "qgd_tpu/forward.py:158",
+                      lambda: sk.hermite_stage_pair_kernel_call(A, dt, m),
+                      lambda: sk.stage_pair_plain(A, dt, m),
+                      _pair_yardstick(A, dt, dev), B_l, True))
     flush_buf = torch.empty(FLUSH_BYTES // f32, dtype=torch.float32,
                             device=dev)
     flush = flush_buf.zero_
@@ -721,16 +760,13 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
                       lambda: sk.rhs_plain(Ar, W, dt, m, rhs_sign), None,
                       B_r, False))
     for name, src, replaces, kern, plain, lib, B, is_chain in cases:
-        out, ref = kern(), plain()
+        err, rel = _errs(kern(), plain())
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        del out, ref
         check(rel <= KERNEL_REL_TOL,
               f"{name} at B={B}: {rel:.2e} relative")
         lib_note = ""
         if lib is not None:
-            lib_rel = _rel(lib(), sk.lhs_matrix_plain(A, dt, m, sign))
+            lib_rel = _errs(lib(), plain())[1]
             check(lib_rel <= KERNEL_REL_TOL,
                   f"{name} library yardstick vs plain: {lib_rel:.2e}")
         calls = 20 if B * n * n * f32 < 2 ** 28 else 3
@@ -749,14 +785,17 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
         eager = [_eager_ms(f) for f in (plain, kern)]
         host_us = _host_us(kern, calls=200 if calls == 20 else 20)
         kernels = _device_kernels(kern)
-        row_tag = ((rhs_tag or f"B={B}") if name == "hermite_rhs" else tag)
-        row = {"name": f"{name}[{row_tag}]" if tag or rhs_tag else name,
+        row_tag = {"hermite_rhs": rhs_tag or f"B={B}",
+                   "hermite_stage_pair": pair_tag or f"B={B}"}.get(name, tag)
+        tagged = tag or rhs_tag or pair_tag
+        row = {"name": f"{name}[{row_tag}]" if tagged else name,
                "route": "cuda", "source": src,
                "replaces": replaces, "launches": 0, "phase": driven_by,
                "shape": {"B": B, "n": n, "m": m,
                          **({"b": b, "sign": int(rhs_sign)}
                             if name == "hermite_rhs"
-                            else {"sign": int(sign)})},
+                            else {"sign": 1 if name == "hermite_stage_pair"
+                                  else int(sign)})},
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_resource": resource, "share": bound_ms / ms,
@@ -766,6 +805,15 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
         if lib is None:
             row["library_note"] = ("no single PyTorch call: W2 depends on "
                                    "W1, two dependent products")
+        elif name == "hermite_stage_pair":
+            row["library_note"] = (
+                f"no single PyTorch call returns the pair: the chain of "
+                f"{m * (m - 1) // 2} cuBLAS products (torch.baddbmm per "
+                f"product on the pre-scaled stack) and the two epilogue "
+                f"passes R = E + O, L = E - O took {lib_ms:.4f} ms")
+            lib_note = (f"; library: none, chain of cuBLAS products and "
+                        f"the two epilogue passes {lib_ms:.4f} ms, "
+                        f"{lib_rel:.1e} rel vs plain")
         elif is_chain:
             row["library_note"] = (
                 f"no single PyTorch call at m = {m}: D_(j+1) depends on "
@@ -784,6 +832,7 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
         warm = (" (share > 1: the operands came from L2)"
                 if bound_ms / ms > 1 else "")
         what = (f"b={b} sign={int(rhs_sign):+d}" if name == "hermite_rhs"
+                else "(R, L)" if name == "hermite_stage_pair"
                 else f"sign={int(sign):+d}")
         phase("kernels", f"{name} at B={B} n={n} m={m} {what}: max|kernel-"
                          f"plain| {err:.3e} ({rel:.2e} rel); device time per "
@@ -804,6 +853,41 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
                          f"{row['device_launches']}: {kernels}; {smi}")
     del flush_buf
     return rows
+
+
+def _errs(out, ref):
+    """``(max |out - ref|, that over max |ref|)``, the largest over the
+    outputs where the function returns a pair."""
+    pairs = zip(out, ref) if isinstance(out, tuple) else [(out, ref)]
+    errs = [(float((o - r).abs().max()), float(r.abs().max()))
+            for o, r in pairs]
+    return max(e for e, _ in errs), max(e / r for e, r in errs)
+
+
+def _pair_yardstick(A, dt, dev):
+    """The pair's library chain: on the stack scaled at +dt, one
+    ``torch.baddbmm`` per product of the recursion (D_(j+1) depends on
+    D_j), the even and odd level sums E and O, and the two epilogue
+    passes R = E + O, L = E - O."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.ops import stage_kernels as sk
+
+    m, n = A.shape[1], A.shape[-1]
+    c = qt.hermite_coefficients(m)
+    As = A * sk._stack_scales(dt, m, 1.0, dev)[None, :, None, None]
+    E0 = c[0] * torch.eye(n, device=dev)
+
+    def chain():
+        D = [None, As[:, 0]]
+        for j in range(1, m):
+            acc = As[:, j]
+            for i in range(1, j + 1):
+                acc = torch.baddbmm(acc, As[:, j - i], D[i])
+            D.append(acc / (j + 1))
+        E = E0 + sum(c[j] * D[j] for j in range(2, m + 1, 2))
+        O = sum(c[j] * D[j] for j in range(1, m + 1, 2))
+        return torch.add(E, O), torch.sub(E, O)
+    return chain
 
 
 def _lhs_yardstick(A, dt, sign, dev):
@@ -840,48 +924,118 @@ def _lhs_yardstick(A, dt, sign, dev):
     return chain, True
 
 
+def _replayed_calls(call, graphs, expected, what, calls=4):
+    """``calls`` calls of a segmented route that keeps its programs in
+    ``graphs``: the first runs each program eagerly once and captures it,
+    the second runs under CUDA's sync debug mode (device waits), the rest
+    are timed. Each call's launches are held to ``expected`` (replays
+    counted); every later call's objective to the capturing call's, bit
+    for bit, its gradient within 1e-15 relative. Memory: the peak of
+    allocated tensors, and that above the call's start; the growth of
+    reserved memory over the calls (the graphs' pools)."""
+    from qgd_tpu_torch.ops import stage_kernels as sk
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    outs, secs, peaks, above = [], [], [], []
+    for i in range(calls):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        if i == 1:
+            out, waits = _device_waits(call)
+        else:
+            out = call()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        above.append(peaks[-1] - base)
+        counts = sk.launch_counts()
+        check(counts == expected, f"{what} launch counts, call {i}: "
+                                  f"{counts} != {expected}")
+        if i == 0:
+            first = graphs.stats()
+        outs.append(out)
+    (j1, g, _), grad = outs[0]
+    bitwise = all(torch.equal(o[0][0] + o[0][1], j1 + g) for o in outs[1:])
+    d_grad = max(_grad_rel(o[1], grad) for o in outs[1:])
+    check(bitwise and d_grad <= 1e-15,
+          f"{what}: replayed calls vs the capturing call: objective "
+          f"bit-identical {bitwise}, |d grad|/|grad| {d_grad:.3e}")
+    return dict(out=outs[0], secs=secs, waits=waits, peaks=peaks,
+                above=above, counts=counts, first=first,
+                stats=graphs.stats(), d_grad=d_grad,
+                grown=torch.cuda.memory_reserved() - reserved0)
+
+
+def _program_nodes(graphs, cls, prob, m, L, S):
+    """Nodes of the graphs of the forward and backward programs ``graphs``
+    keeps for ``cls`` (their buffers as the last run left them)."""
+    from qgd_tpu_torch.ops import stage_kernels as sk
+
+    progs = graphs.programs(cls, prob, m, L, S)
+    nodes = {k: _graph_nodes(getattr(progs, f"_{k}"))
+             for k in ("forward", "backward")}
+    sk.reset_launch_counts()      # the captures' launches ran nowhere
+    return nodes
+
+
+def _graph_report(r, nodes, steps, S):
+    """The phase line's part on a route's graphs, from
+    :func:`_replayed_calls`."""
+    steady = float(np.mean(r["secs"][2:]))
+    return (f"seconds per call: first (runs each program once eagerly and "
+            f"captures it) {r['secs'][0]:.3f}, under sync debug mode "
+            f"{r['secs'][1]:.3f}, then "
+            f"{', '.join(f'{t:.3f}' for t in r['secs'][2:])} (mean "
+            f"{steady:.3f}: {2 * steps * S / steady:.1f} counted steps/s, "
+            f"{steady / (2 * steps) * 1e6:.1f} us per step and pass); "
+            f"capture {r['first']['capture_seconds']:.3f} s for "
+            f"{r['first']['graphs']} graphs of {nodes['forward']} (fwd) and "
+            f"{nodes['backward']} (bwd) nodes; replays over the "
+            f"{len(r['secs'])} calls {r['stats']['replays']}; replayed calls "
+            f"vs the capturing call: objective bit-identical, |d grad|/|grad|"
+            f" {r['d_grad']:.3e}; device waits per call {r['waits']}; peak "
+            f"allocated {[round(p / 1e9, 3) for p in r['peaks']]} GB "
+            f"({[round(p / 1e9, 3) for p in r['above']]} above each call's "
+            f"start), reserved memory grew {r['grown'] / 1e9:.3f} GB over "
+            f"the calls; launches per call {r['counts']}")
+
+
 def main_path_phase(prob, controls, pcof, tgt, dev, rows, smi):
     import qgd_tpu_torch as qt
-    from qgd_tpu_torch.ops import stage_kernels as sk
+    from qgd_tpu_torch import segmented
 
     run = lambda p, pc, **kw: qt.segmented_objective_and_gradient(
         p, controls, pc, tgt, ORDER, **kw)
-
-    torch.cuda.reset_peak_memory_stats()
-    sk.reset_launch_counts()
-    t0 = time.perf_counter()
-    (j1, guard, _), grad = run(prob, pcof)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    counts = sk.launch_counts()
+    graphs = qt.SegmentGraphs()
     # per objective+gradient call: one LHS-kernel launch (the implicit
     # stage matrix LHS(t_{n+1})) and one RHS-kernel launch (the explicit
-    # half) per forward step; the backward builds R and L in plain torch
-    expected = {"hermite_lhs_matrix": NSTEPS, "hermite_rhs": NSTEPS}
-    check(counts == expected, f"launch counts {counts} != {expected}")
-    for r in rows:
-        if r["name"] in counts:
-            r["launches"] = counts[r["name"]]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # half) per forward step, one pair-kernel launch (R(t_n), L(t_n)) per
+    # backward step, in blocks of K steps replayed as CUDA graphs
+    expected = {"hermite_lhs_matrix": NSTEPS, "hermite_rhs": NSTEPS,
+                "hermite_stage_pair": NSTEPS}
+    r = _replayed_calls(lambda: run(prob, pcof, graphs=graphs), graphs,
+                        expected, "main")
+    (j1, guard, _), grad = r["out"]
+    for row in rows:
+        if row["name"] in r["counts"]:
+            row["launches"] = r["counts"][row["name"]]
+    K = segmented._block_length(NSTEPS)
+    nodes = _program_nodes(graphs, segmented._BlockPrograms, prob,
+                           ORDER // 2, K, SCENARIOS)
 
     obj = (j1 + guard)
     check(obj.shape == (SCENARIOS,) and grad.shape == (SCENARIOS, 60),
           "output shapes")
     check(bool(torch.isfinite(obj).all()) and
           bool(torch.isfinite(grad).all()), "finite objective and gradient")
-
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run(prob, pcof)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    sec = float(np.mean(times))
-    steps = 2 * NSTEPS * SCENARIOS
-    phase("main", f"CNOT3 nsteps={NSTEPS} S={SCENARIOS} f32 kernel route: "
-                  f"first call {first_s:.3f} s, then {', '.join(f'{t:.3f}' for t in times)} s "
-                  f"-> {steps / sec:.1f} steps/s (2*nsteps*S per call) on "
-                  f"{smi}; launches {counts}; peak memory {peak_gb:.2f} GB")
+    phase("main", f"CNOT3 nsteps={NSTEPS} S={SCENARIOS} f32 kernel route, "
+                  f"L = 1 in {NSTEPS // K} blocks of K = {K} steps: "
+                  + _graph_report(r, nodes, NSTEPS, SCENARIOS) + f"; {smi}")
 
     # f32 plain route and native f64 plain route, scenarios 0-3
     k = 4
@@ -932,20 +1086,23 @@ def order8_phase(prob, controls, pcof, tgt, dev, rows, smi):
     import qgd_tpu_torch as qt
     from qgd_tpu_torch.ops import stage_kernels as sk
 
-    run = lambda p, pc: qt.segmented_objective_and_gradient(
-        p, controls, pc, tgt, ORDER8)
+    run = lambda p, pc, **kw: qt.segmented_objective_and_gradient(
+        p, controls, pc, tgt, ORDER8, **kw)
+    graphs = qt.SegmentGraphs()     # the second call replays the first's
     secs = []
     for _ in range(2):
         torch.cuda.synchronize()
         sk.reset_launch_counts()
         t0 = time.perf_counter()
-        (j1, g, _), grad = run(prob, pcof)
+        (j1, g, _), grad = run(prob, pcof, graphs=graphs)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         counts = sk.launch_counts()
     # per call, as at order 4: one LHS-kernel call (staged launch plus the
-    # level launches j = 2, 3) and one RHS-kernel call per forward step
-    expected = {"hermite_lhs_matrix": NSTEPS, "hermite_rhs": NSTEPS}
+    # level launches j = 2, 3) and one RHS-kernel call per forward step,
+    # one pair-kernel call (the same launches) per backward step
+    expected = {"hermite_lhs_matrix": NSTEPS, "hermite_rhs": NSTEPS,
+                "hermite_stage_pair": NSTEPS}
     check(counts == expected, f"order8 launch counts {counts} != "
                               f"{expected}")
     _set_launches(rows, "order8", counts)
@@ -959,7 +1116,8 @@ def order8_phase(prob, controls, pcof, tgt, dev, rows, smi):
     d_obj, d_grad = _scenario_deltas(obj[:k], grad[:k], fj1 + fg, fgrad)
     res = qt.stage_residuals(prob, controls, pcof[:1], ORDER8, sample=8)
     phase("order8", f"CNOT3 nsteps={NSTEPS} S={SCENARIOS} f32 kernel route "
-                    f"at order {ORDER8}: seconds per call "
+                    f"at order {ORDER8}: seconds per call (the first "
+                    f"captures, the second replays) "
                     f"{[round(t, 3) for t in secs]}; launches per call "
                     f"{counts}; scenarios 0-3 vs the f64 lu route: |d obj| "
                     f"{d_obj:.3e} (<= {F64_OBJ_TOL:g}), |d grad|/|grad| "
@@ -1002,12 +1160,14 @@ def large_dense_phase(pcof, dev, rows, smi):
         out[ns] = (j1 + g, grad, time.perf_counter() - t0,
                    torch.cuda.max_memory_allocated(), sk.launch_counts())
     # forward and re-forward launch the LHS kernel once per segment (at
-    # B = L) and the RHS kernel once per step; at L = 1 the forward alone
-    # runs, one of each per step
+    # B = L) and the RHS kernel once per step, the backward the pair kernel
+    # once per segment; at L = 1 the forward alone runs, one of each per
+    # step, and the backward one pair per step
     passes = {n_seg: 2, n_auto: 1 if n_auto == LARGE_NSTEPS else 2}
     for ns, (_, _, _, _, counts) in out.items():
         expected = {"hermite_lhs_matrix": passes[ns] * ns,
-                    "hermite_rhs": passes[ns] * LARGE_NSTEPS}
+                    "hermite_rhs": passes[ns] * LARGE_NSTEPS,
+                    "hermite_stage_pair": ns}
         check(counts == expected, f"large_dense launch counts at "
                                   f"n_segments={ns}: {counts} != {expected}")
     _set_launches(rows, "large_dense", out[n_seg][4], f"B={LARGE_L},")
@@ -1124,9 +1284,11 @@ def optimize_phase(rows, dev, smi):
         counts = sk.launch_counts()
         n_eval = len(hist.obj_value)
         # per evaluation: one hoisted LHS launch over all steps, one RHS
-        # launch per forward step; the adjoint sweep launches none
+        # launch per forward step, one hoisted pair launch over the
+        # adjoint's interior points
         expected = {"hermite_lhs_matrix": n_eval,
-                    "hermite_rhs": OPT_NSTEPS * n_eval}
+                    "hermite_rhs": OPT_NSTEPS * n_eval,
+                    "hermite_stage_pair": n_eval}
         check(counts == expected, f"optimize launch counts {counts} != "
                                   f"{expected}")
         for row in rows:
@@ -1142,7 +1304,8 @@ def optimize_phase(rows, dev, smi):
                           f"per evaluation {[round(float(t), 3) for t in secs]} "
                           f"(median {float(np.median(secs)):.3f} s); kernel "
                           f"launches {counts} = per evaluation 1 LHS "
-                          f"(B={OPT_NSTEPS}) and {OPT_NSTEPS} RHS (B=1); "
+                          f"(B={OPT_NSTEPS}), {OPT_NSTEPS} RHS (B=1) and 1 "
+                          f"pair (B={OPT_NSTEPS - 1}); "
                           f"{smi}")
         check(n_eval > 1 and min(hist.obj_value[1:]) < hist.obj_value[0],
               "optimize: a later objective below the first")
@@ -1171,49 +1334,52 @@ def _scenario_deltas(obj, grad, ref_obj, ref_grad):
 
 def segmented_phase(prob, controls, pcof, tgt, dev, rows, smi):
     """The main path at segment length L = 40 against L = 1 (seconds per
-    call and peak memory of both), then CNOT3 at nsteps = OPT_NSTEPS with
-    the scenarios of the main path on the automatic segment rule."""
+    call, the capturing call apart, capture seconds, graph nodes, device
+    waits and memory), then CNOT3 at nsteps = OPT_NSTEPS with the
+    scenarios of the main path on the automatic segment rule."""
     import qgd_tpu_torch as qt
+    from qgd_tpu_torch import segmented
     from qgd_tpu_torch.ops import stage_kernels as sk
     from qgd_tpu_torch.segmented import _auto_segments
 
     n_seg = qt.choose_segments(NSTEPS)
     L = NSTEPS // n_seg
-    runs = {}
+    # per call at L = 40: forward and re-forward each launch the LHS kernel
+    # once per segment (at S*L) and the RHS kernel once per step (at S),
+    # the backward the pair kernel once per segment (at S*L); at L = 1 the
+    # main phase's counts
+    expected = {n_seg: {"hermite_lhs_matrix": 2 * n_seg,
+                        "hermite_rhs": 2 * NSTEPS,
+                        "hermite_stage_pair": n_seg},
+                NSTEPS: {"hermite_lhs_matrix": NSTEPS, "hermite_rhs": NSTEPS,
+                         "hermite_stage_pair": NSTEPS}}
+    runs, graphs = {}, {}
     for ns in (NSTEPS, n_seg):
-        secs = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            sk.reset_launch_counts()
-            t0 = time.perf_counter()
-            (j1, g, _), grad = qt.segmented_objective_and_gradient(
-                prob, controls, pcof, tgt, ORDER, n_segments=ns)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        runs[ns] = (j1 + g, grad, secs, torch.cuda.max_memory_allocated(),
-                    sk.launch_counts())
-    obj, grad, secs, peak, counts = runs[n_seg]
-    obj1, grad1, secs1, peak1, _ = runs[NSTEPS]
-    # per call: forward and re-forward each launch the LHS kernel once per
-    # segment (at S*L) and the RHS kernel once per step (at S)
-    expected = {"hermite_lhs_matrix": 2 * n_seg, "hermite_rhs": 2 * NSTEPS}
-    check(counts == expected, f"segmented launch counts {counts} != "
-                              f"{expected}")
-    for row in rows:
-        if row["phase"] == "segmented":
-            row["launches"] = counts["hermite_lhs_matrix"]
+        graphs[ns] = qt.SegmentGraphs()
+        runs[ns] = _replayed_calls(
+            lambda: qt.segmented_objective_and_gradient(
+                prob, controls, pcof, tgt, ORDER, n_segments=ns,
+                graphs=graphs[ns]), graphs[ns], expected[ns],
+            f"segmented n_segments={ns}", calls=4 if ns == n_seg else 3)
+    (j1, g, _), grad = runs[n_seg]["out"]
+    (j1_1, g_1, _), grad1 = runs[NSTEPS]["out"]
+    obj, obj1 = j1 + g, j1_1 + g_1
+    _set_launches(rows, "segmented", runs[n_seg]["counts"])
+    nodes = _program_nodes(graphs[n_seg], segmented._SegmentPrograms, prob,
+                           ORDER // 2, L, SCENARIOS)
     check(bool(torch.isfinite(obj).all() and torch.isfinite(grad).all()),
           "segmented: finite objective and gradient")
     d_obj, d_grad = _scenario_deltas(obj, grad, obj1, grad1)
+    steady1 = float(np.mean(runs[NSTEPS]["secs"][2:]))
     phase("segmented", f"CNOT3 nsteps={NSTEPS} S={SCENARIOS}: L={L} "
                        f"(n_segments={n_seg}) vs L=1: |d obj| {d_obj:.3e} "
                        f"(<= {ROUTE_OBJ_TOL:g}), |d grad|/|grad| "
-                       f"{d_grad:.3e} (<= {ROUTE_GRAD_TOL:g}); seconds per "
-                       f"call L={L} {[round(t, 3) for t in secs]}, L=1 "
-                       f"{[round(t, 3) for t in secs1]}; peak memory L={L} "
-                       f"{peak / 1e9:.3f} GB, L=1 {peak1 / 1e9:.3f} GB; "
-                       f"launches per call {counts}; {smi}")
+                       f"{d_grad:.3e} (<= {ROUTE_GRAD_TOL:g}); L={L}: "
+                       + _graph_report(runs[n_seg], nodes, NSTEPS, SCENARIOS)
+                       + f"; L=1 seconds per call "
+                       f"{[round(t, 3) for t in runs[NSTEPS]['secs']]} "
+                       f"(replayed {steady1:.3f}), peak allocated "
+                       f"{max(runs[NSTEPS]['peaks']) / 1e9:.3f} GB; {smi}")
     check(d_obj <= ROUTE_OBJ_TOL and d_grad <= ROUTE_GRAD_TOL,
           "segmented: L=40 vs L=1")
 
@@ -1237,7 +1403,8 @@ def segmented_phase(prob, controls, pcof, tgt, dev, rows, smi):
     counts = sk.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     expected = {"hermite_lhs_matrix": 2 * n_auto,
-                "hermite_rhs": 2 * OPT_NSTEPS}
+                "hermite_rhs": 2 * OPT_NSTEPS,
+                "hermite_stage_pair": n_auto}
     check(counts == expected, f"long-horizon launch counts {counts} != "
                               f"{expected}")
     check(bool(torch.isfinite(j1 + g).all() and torch.isfinite(grad).all()),
@@ -1276,8 +1443,10 @@ def prefix_phase(rows, start, dev, smi):
     check(OPT_NSTEPS // n_seg == PREFIX_L, f"prefix segment length "
                                            f"{OPT_NSTEPS // n_seg}")
     # per evaluation: R(t_left) (sign +1) and M(t_right) (sign -1) of every
-    # segment in the forward, M(t_right) again in the backward
-    per_eval = {"hermite_lhs_matrix": 3 * n_seg, "hermite_rhs": 0}
+    # segment in the forward, M(t_right) again in the backward with the
+    # pair (R, L) at t_left
+    per_eval = {"hermite_lhs_matrix": 3 * n_seg, "hermite_rhs": 0,
+                "hermite_stage_pair": n_seg}
     per_eval_sign = {"-1": 2 * n_seg, "+1": n_seg}
     secs = []
     for _ in range(2):
@@ -1337,7 +1506,10 @@ def prefix_phase(rows, start, dev, smi):
           f"!= {expected}, {expected_sign}")
     for row in rows:
         if row["phase"] == "prefix":
-            row["launches"] = by_sign[f"{row['shape']['sign']:+d}"]
+            row["launches"] = (
+                counts["hermite_stage_pair"]
+                if row["name"].startswith("hermite_stage_pair")
+                else by_sign[f"{row['shape']['sign']:+d}"])
             row["launches_per_evaluation"] = row["launches"] // n_eval
     ev_secs = np.diff([0.0] + hist.wall_time)
     phase("prefix", f"optimize_gate(gradient_route='prefix'), L-BFGS-B "
@@ -1415,13 +1587,14 @@ def _chunk_walls(walls):
 def chunked_phase(rows, start, dev, smi):
     """The host-chunked route (qgd_tpu_torch.chunked), its segment programs
     replayed as CUDA graphs: (a) the optimize phase's setup against the
-    eager segmented route at the same segment count and float64 LU, with
+    segmented route at the same segment count (one call, which captures
+    its own programs) and float64 LU, with
     seconds per evaluation, capture seconds, graph nodes, device waits,
     peak memory and launches per evaluation; (b) float64 LU, chunked
     against segmented; (c) the long horizon; (d) optimize_gate(
     max_dispatch_steps=...) and a resume from its files alone."""
     import qgd_tpu_torch as qt
-    from qgd_tpu_torch import chunked
+    from qgd_tpu_torch import chunked, segmented
     from qgd_tpu_torch.ops import stage_kernels as sk
 
     m = ORDER // 2
@@ -1429,7 +1602,8 @@ def chunked_phase(rows, start, dev, smi):
     L = OPT_NSTEPS // CHUNK_SEGMENTS
     kw = dict(ridge_penalty_strength=1e-2, n_segments=CHUNK_SEGMENTS)
     per_eval = {"hermite_lhs_matrix": 2 * CHUNK_SEGMENTS,
-                "hermite_rhs": 2 * OPT_NSTEPS}
+                "hermite_rhs": 2 * OPT_NSTEPS,
+                "hermite_stage_pair": CHUNK_SEGMENTS}
     graphs, walls = chunked.SegmentGraphs(), []
 
     def run():
@@ -1477,9 +1651,9 @@ def chunked_phase(rows, start, dev, smi):
     for row in rows:
         if row["phase"] == "chunked":
             row["launches_per_evaluation"] = row["launches"]
-    prog = graphs.programs(prob, None, m, L, prob)
-    nodes = {"fwd": _graph_nodes(prog._forward),
-             "bwd": _graph_nodes(prog._backward)}
+    nodes = _program_nodes(graphs, segmented._SegmentPrograms, prob, m, L,
+                           1)
+    nodes = {"fwd": nodes["forward"], "bwd": nodes["backward"]}
     sk.reset_launch_counts()
 
     torch.cuda.synchronize()
@@ -1513,7 +1687,7 @@ def chunked_phase(rows, start, dev, smi):
     phase("chunked", f"(a) CNOT3 nsteps={OPT_NSTEPS}, 180 carrier "
                      f"parameters, start point, {CHUNK_SEGMENTS} segments of "
                      f"{L}, max_dispatch_steps={CHUNK_CAP}: {n_chunks} chunks;"
-                     f" objective {obj:.9f}; chunked (graphs) vs eager "
+                     f" objective {obj:.9f}; chunked (graphs) vs "
                      f"segmented |d obj|/|obj| {d_obj:.3e} (<= "
                      f"{CHUNK_OBJ_TOL:g}), |d grad|/|grad| {d_grad:.3e} (<= "
                      f"{CHUNK_GRAD_TOL:g}), bit-identical {bitwise}; vs f64 "
@@ -1526,7 +1700,8 @@ def chunked_phase(rows, start, dev, smi):
                      f"{secs[0]:.3f}, under sync debug mode {secs[1]:.3f}, "
                      f"then {secs[2]:.3f}, {secs[3]:.3f} (mean {steady:.3f},"
                      f" {steady / (2 * OPT_NSTEPS) * 1e6:.2f} us per step and"
-                     f" pass); eager segmented {seg_s:.3f} "
+                     f" pass); segmented, one call that captures its "
+                     f"own programs, {seg_s:.3f} "
                      f"({seg_s / (2 * OPT_NSTEPS) * 1e6:.2f} us per step and "
                      f"pass; {seg_s / steady:.2f} x the chunked route); "
                      f"capture {first['capture_seconds']:.3f} s for "
@@ -1605,7 +1780,8 @@ def chunked_phase(rows, start, dev, smi):
     obj_l, sec_l, walls_l, st_l, peak_l, counts_l = long_run(prob_l,
                                                              LONG_CAP)
     check(counts_l == {"hermite_lhs_matrix": 2 * S_l,
-                       "hermite_rhs": 2 * LONG_NSTEPS},
+                       "hermite_rhs": 2 * LONG_NSTEPS,
+                       "hermite_stage_pair": S_l},
           f"long horizon launch counts {counts_l}")
     _set_launches(rows, "chunked_long", counts_l)
     for row in rows:
@@ -1776,8 +1952,9 @@ def multistart_phase(dev, smi):
 
 def trace_phase(pcof, tgt, dev, smi):
     """torch.profiler over one main-path call at nsteps = TRACE_STEPS (the
-    same step size, S = SCENARIOS): the device's busy share of the call and
-    where its device time goes."""
+    same step size, S = SCENARIOS) that replays the programs an earlier
+    call captured: the device's busy share of the call and where its
+    device time goes."""
     import qgd_tpu_torch as qt
     from torch.profiler import ProfilerActivity, profile
 
@@ -1786,9 +1963,11 @@ def trace_phase(pcof, tgt, dev, smi):
                             dtype="float32", schulz_iters=48,
                             schulz_warm_budget=0, device=dev)
     controls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
+    graphs = qt.SegmentGraphs()
     run = lambda: qt.segmented_objective_and_gradient(prob, controls, pcof,
-                                                      tgt, ORDER)
-    run()
+                                                      tgt, ORDER,
+                                                      graphs=graphs)
+    run()                     # captures; the profiled call replays
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1804,9 +1983,11 @@ def trace_phase(pcof, tgt, dev, smi):
         elif e.name.startswith("aten::"):
             ops += 1
     busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    phase("trace", f"one call, nsteps={TRACE_STEPS} S={SCENARIOS}, "
-                   f"torch.profiler on, {smi}: wall {wall_ms:.1f} ms, device "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    phase("trace", f"one call replaying the captured programs "
+                   f"({graphs.stats()['replays']} replays so far), nsteps="
+                   f"{TRACE_STEPS} S={SCENARIOS}, torch.profiler on, {smi}: "
+                   f"wall {wall_ms:.1f} ms, device "
                    f"kernels {busy_ms:.1f} ms (busy {busy_ms / wall_ms:.3f}, "
                    f"idle {1 - busy_ms / wall_ms:.3f}), {ops} aten events, nested "
                    f"calls included ({ops / TRACE_STEPS:.0f} per step); top "
@@ -1847,10 +2028,14 @@ def gmres_phase(pcof, tgt, rows, start, dev, smi):
         secs.append(time.perf_counter() - t0)
         by_sign = sk.rhs_launches_by_sign()
         lhs_n = sk.launch_counts()["hermite_lhs_matrix"]
+        pair_n = sk.launch_counts()["hermite_stage_pair"]
     peak = torch.cuda.max_memory_allocated()
     expected = {"-1": passes * NSTEPS * per_step, "+1": passes * NSTEPS}
-    check(by_sign == expected and lhs_n == 0,
-          f"gmres launches by sign {by_sign}, LHS {lhs_n} != {expected}, 0")
+    # the backward's pairs: one launch per step at L = 1, per segment else
+    pair_expected = NSTEPS if passes == 1 else n_auto
+    check(by_sign == expected and lhs_n == 0 and pair_n == pair_expected,
+          f"gmres launches by sign {by_sign}, LHS {lhs_n}, pair {pair_n} != "
+          f"{expected}, 0, {pair_expected}")
     for row in rows:
         if row["phase"] == "gmres":
             row["launches"] = by_sign["-1"]
@@ -1870,7 +2055,9 @@ def gmres_phase(pcof, tgt, rows, start, dev, smi):
                    f"{[round(t, 3) for t in secs]}, peak memory "
                    f"{peak / 1e9:.3f} GB; RHS launches by sign {by_sign} "
                    f"(per forward step 1 explicit half and {per_step} "
-                   f"operator applications), LHS launches {lhs_n}; "
+                   f"operator applications), LHS launches {lhs_n}, "
+                   f"pair launches {pair_n} (the backward's, programs run "
+                   f"eagerly: GMRES is not captured); "
                    f"scenarios 0-3 vs the f64 lu route: |d obj| "
                    f"{d_obj:.3e} (<= {F64_OBJ_TOL:g}), |d grad|/|grad| "
                    f"{d_grad:.3e} (<= {F64_GRAD_TOL:g}); stage residual, "
@@ -1942,12 +2129,17 @@ def gmres_phase(pcof, tgt, rows, start, dev, smi):
     by_sign = sk.rhs_launches_by_sign()
     expected = {"-1": n_eval * OPT_NSTEPS * (GMRES_OPT_BUDGET + 1),
                 "+1": n_eval * OPT_NSTEPS}
-    check(by_sign == expected, f"gmres optimize launches {by_sign} != "
-                               f"{expected}")
+    pair_n = sk.launch_counts()["hermite_stage_pair"]
+    # the adjoint's pairs, one per interior step (GMRES hoists no stage)
+    check(by_sign == expected and pair_n == n_eval * (OPT_NSTEPS - 1),
+          f"gmres optimize launches {by_sign}, pair {pair_n} != {expected}, "
+          f"{n_eval * (OPT_NSTEPS - 1)}")
     for row in rows:
         if row["phase"] == "gmres_optimize":
-            row["launches"] = by_sign["-1"]
-            row["launches_per_evaluation"] = by_sign["-1"] // n_eval
+            n = (pair_n if row["name"].startswith("hermite_stage_pair")
+                 else by_sign["-1"])
+            row["launches"] = n
+            row["launches_per_evaluation"] = n // n_eval
     ev = np.diff([0.0] + hist.wall_time)
     phase("gmres", f"optimize_gate, CNOT3 nsteps={OPT_NSTEPS}, 180 carrier "
                    f"parameters, f32 GMRES({GMRES_OPT_BUDGET}) diagonal "
@@ -2079,7 +2271,8 @@ def sharded_phase(prob, controls, pcof, tgt, dev, rows, smi):
         call()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        expected = {"hermite_lhs_matrix": NSTEPS, "hermite_rhs": NSTEPS}
+        expected = {"hermite_lhs_matrix": NSTEPS, "hermite_rhs": NSTEPS,
+                    "hermite_stage_pair": NSTEPS}
         check(counts == expected, f"sharded (a) launches {counts} != "
                                   f"{expected}")
         check(vals.shape == (SCENARIOS,) and grads.shape == (SCENARIOS, 60)
@@ -2148,7 +2341,8 @@ def sharded_phase(prob, controls, pcof, tgt, dev, rows, smi):
     d_grad = max(float(np.linalg.norm(r["grad"] - grad.cpu().numpy())
                        / float(grad.norm())) for r in got)
     counts = json.loads(str(got[0]["counts"]))
-    expected = {"hermite_lhs_matrix": 1, "hermite_rhs": NSTEPS}
+    expected = {"hermite_lhs_matrix": 1, "hermite_rhs": NSTEPS,
+                "hermite_stage_pair": 1}
     check(all(json.loads(str(r["counts"])) == expected for r in got),
           f"sharded (b) launches {[str(r['counts']) for r in got]} != "
           f"{expected}")

@@ -6,8 +6,8 @@ What is ported: gate design end to end. The optimizer drivers
 ``optimize_gate_multistart``, batched L-BFGS on the device), the plain
 Lagrange route (forward history, thinned or whole, adjoint sweep,
 ``objective_and_gradient``, ``discrete_adjoint``), the segmented route at
-any segment length, its host-chunked form for long horizons (segment
-programs captured once as CUDA graphs and replayed) and the
+any segment length (its step loops run as programs captured once as CUDA
+graphs and replayed), its host-chunked form for long horizons and the
 prefix-product latency route, each with the
 ``"lu"`` and ``"schulz"`` stage solvers and the matrix-free ``"gmres"``
 solver with its three preconditioners (``parallel.tp_forward_history``
@@ -22,7 +22,9 @@ interchange and Stormer-Verlet baseline, and the analysis utilities
 the scipy/QuTiP ground truth, plotting). Control vectors are
 batched as a leading tensor dimension. The two Pallas kernels of
 ``qgd_tpu/ops/pallas_step.py`` are hand-written CUDA kernels here
-(``csrc/lhs.cu``, ``csrc/rhs.cu``, wrapped in ``ops/stage_kernels.py``),
+(``csrc/lhs.cuh``, ``csrc/rhs.cu``, wrapped in ``ops/stage_kernels.py``),
+the LHS one also in the variant that builds the adjoint's pair of
+one-step matrices (``csrc/pair.cu``),
 built with ``nvcc`` at first use on a CUDA tensor. Problems are built on
 the card unless the caller passes ``device="cpu"``.
 
@@ -115,6 +117,7 @@ from .adjoint import (  # noqa: E402
     eval_hessian,
 )
 from .segmented import (  # noqa: E402
+    SegmentGraphs,
     choose_segments,
     segmented_objective_and_gradient,
     segmented_gradient,
@@ -256,6 +259,7 @@ __all__ = [
     "eval_hessian",
     "choose_segments",
     "segmented_objective_and_gradient",
+    "SegmentGraphs",
     "segmented_gradient",
     "segmented_objective_value",
     "chunked_objective_and_gradient",

@@ -175,7 +175,8 @@ def objective_and_gradient(prob, controls, pcof, target, order: int = 4,
     ridge = ridge_penalty(pcof, ridge_penalty_strength)
     grad = _discrete_adjoint_lagrange(prob, controls, pcof, target, order,
                                       cost_type, history=history,
-                                      ic_group=ic_group)
+                                      ic_group=ic_group,
+                                      use_kernels=use_kernels)
     grad = grad + 2.0 * ridge_penalty_strength * pcof / pcof.shape[-1]
     if single:
         return (j1[0], guard[0], ridge[0]), grad[0]
@@ -183,15 +184,17 @@ def objective_and_gradient(prob, controls, pcof, target, order: int = 4,
 
 
 def _discrete_adjoint_lagrange(prob, controls, pcof, target, order: int,
-                               cost_type: str, history=None, ic_group=None):
+                               cost_type: str, history=None, ic_group=None,
+                               use_kernels: bool = True):
     """Hand-structured discrete adjoint for ``pcof (S, N_params)`` (see the
     module docstring); ``history`` is reused from the objective's forward
-    solve when given; ``ic_group`` as in :func:`objective_and_gradient`.
-    Returns ``(S, N_params)`` float64."""
+    solve when given; ``ic_group`` and ``use_kernels`` as in
+    :func:`objective_and_gradient`. Returns ``(S, N_params)`` float64."""
     m = order // 2
     dt, ts = _time_grid(prob)
     if history is None:
-        history = eval_forward(prob, controls, pcof, order)
+        history = eval_forward(prob, controls, pcof, order,
+                               use_kernels=use_kernels)
 
     forcing = compute_guard_forcing(prob, history)
     _, g_T = terminal_cost_and_grad(history[:, -1].to(torch.float64),
@@ -199,7 +202,8 @@ def _discrete_adjoint_lagrange(prob, controls, pcof, target, order: int,
                                     prob.N_ess_levels, cost_type, ic_group)
     lam_N = _solve_lhsT_at_tf(prob, controls, pcof, g_T + forcing[:, -1],
                               order)
-    lam = eval_adjoint(prob, controls, pcof, lam_N, order, forcing=forcing)
+    lam = eval_adjoint(prob, controls, pcof, lam_N, order, forcing=forcing,
+                       use_kernels=use_kernels)
     del forcing
 
     c = torch.tensor(hermite_coefficients(m), dtype=torch.float64,

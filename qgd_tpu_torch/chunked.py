@@ -26,33 +26,17 @@ only the summation of the gradient over time points is cut at chunk
 edges, so the values agree with the segmented route at the same segment
 count to summation roundoff.
 
-**CUDA graphs.** On a CUDA problem, one segment's forward program and one
-segment's backward program (:class:`_SegmentPrograms`) read static input
+**CUDA graphs.** The segment programs are the segmented route's
+(``segmented._SegmentPrograms``, for one control vector): one segment's
+forward program and one segment's backward program read static input
 buffers (the segment's tables, trapezoid weights, start state, incoming
-multiplier) and each is captured once as a CUDA graph at its first run,
-then replayed for every later segment: a segment of L steps costs one
-graph launch and a few copies on the host, where the eager step loops
-launch tens of operations per step. The graphs are kept in a
-:class:`SegmentGraphs` that ``optimize_gate`` makes once per run, so
-every evaluation of a run replays the same graphs. A capture or a replay
-that fails raises; nothing runs eagerly in its place. Two rules are fixed
-before any capture, by the problem:
-
-* ``solver="gmres"`` runs its segment programs eagerly on the card: its
-  least-squares step (``ops.gmres._lstsq_min_norm``) is a
-  ``torch.linalg.svd``, which copies to the host, and no graph can hold
-  that copy.
-* ``solver="lu"`` factorizes a segment's stage matrices by cuSOLVER while
-  its programs run and are captured: at a batch of 128 x 128 matrices
-  PyTorch's default is MAGMA's batched LU, which cannot be captured.
-
-A CPU problem runs the same programs eagerly: that is the caller asking
-for the CPU.
-
-A graph replay launches the kernels its capture recorded without calling
-the kernel wrappers, so each replay adds its capture's launches to the
-wrappers' counters (``ops.stage_kernels.add_launches``) and the capture,
-which launches nothing, adds none: the counters read the launches made.
+multiplier), and on a CUDA problem each is captured once as a CUDA graph
+at its first run, then replayed for every later segment, under the
+segmented route's rules (``solver="gmres"`` runs eagerly, ``"lu"``
+factorizes by cuSOLVER) and with its launch counting. The graphs are
+kept in a :class:`~qgd_tpu_torch.segmented.SegmentGraphs` that
+``optimize_gate`` makes once per run, so every evaluation of a run
+replays the same graphs.
 
 ``mesh=`` splits the gate columns over the mesh's ``ic`` ranks
 (``parallel.sharded.Mesh``): each rank propagates its columns, and the
@@ -63,18 +47,15 @@ outside the graphs.
 
 from __future__ import annotations
 
-import contextlib
 import time
 import warnings
 
 import torch
 
 from .controls import as_control_tuple, control_tables, control_tables_at
-from .forward import _drift_stage_inverse
 from .objective import ic_sum, target_on_device, terminal_cost_and_grad
-from .ops import stage_kernels as sk
-from .segmented import (_Work, _cot_weights, _segment_backward_step,
-                        _table_cot, _terminal_multiplier, choose_segments)
+from .segmented import (SegmentGraphs, _SegmentPrograms, _table_cot,
+                        _terminal_multiplier, choose_segments)
 
 
 def _chunk_divisor(S: int, L: int, max_dispatch_steps: int) -> int:
@@ -87,136 +68,6 @@ def _chunk_divisor(S: int, L: int, max_dispatch_steps: int) -> int:
         if S % d == 0 and d * L <= max_dispatch_steps:
             best = d
     return best
-
-
-def _captures(prob) -> bool:
-    """Whether the segment programs of ``prob`` run as CUDA graphs: on a
-    CUDA problem, unless ``solver="gmres"`` (module docstring)."""
-    return prob.device.type == "cuda" and prob.solver != "gmres"
-
-
-@contextlib.contextmanager
-def _capturable_linalg(prob):
-    """cuSOLVER for the LU factorizations of an ``"lu"`` problem's
-    programs while they run eagerly and are captured (module docstring);
-    PyTorch's choice is restored after."""
-    if prob.solver != "lu":
-        yield
-        return
-    before = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.preferred_linalg_library(before)
-
-
-class _SegmentPrograms:
-    """The forward and backward programs of one segment of ``L`` steps of
-    ``prob`` at half-order ``m``, over static buffers.
-
-    Inputs, written by the caller before each run: ``P``, ``Q`` ``(1,
-    L+1, m, N_ops)`` (the work dtype) the tables at the segment's L+1 time
-    points; ``tau (L+1,)`` the trapezoid weights at them (f64); ``w`` the
-    start state and ``lam`` the multiplier at the segment's right end,
-    ``(1, 2N, B)``; ``lam0_scale`` 0 for the segment that starts at t_0,
-    else 1. :meth:`run` returns ``(w_end, guard_partial (1,) f64)`` for
-    ``"fwd"`` and ``(lambda_start, cotP, cotQ)`` for ``"bwd"``; on the card
-    they live in the graph's memory until its next replay.
-    """
-
-    def __init__(self, prob, m: int, L: int):
-        dev, wd = prob.device, prob.work_dtype
-        self.L = L
-        self.P = torch.zeros((1, L + 1, m, prob.N_operators), dtype=wd,
-                             device=dev)
-        self.Q = torch.zeros_like(self.P)
-        self.tau = torch.ones(L + 1, dtype=torch.float64, device=dev)
-        self.w = torch.zeros((1, prob.real_system_size,
-                              prob.N_initial_conditions), dtype=wd,
-                             device=dev)
-        self.lam = torch.zeros_like(self.w)
-        self.lam0_scale = torch.ones((), dtype=wd, device=dev)
-        self.work = _Work(prob, self.P, self.Q, m, None, True,
-                          prob.solver == "schulz", tau=self.tau)
-        self.w_rhs, self.w_lhs = _cot_weights(m, self.work.dt64, wd, dev)
-        self.X0T = (_drift_stage_inverse(self.work.wprob, m, self.work.dt,
-                                         transpose=True)
-                    if self.work.schulz else None)
-        self.captures = _captures(prob)
-        self.graphs = {}          # kind -> (graph, outputs, launches)
-        self.capture_seconds = 0.0
-        self.replays = {"fwd": 0, "bwd": 0}
-
-    def _forward(self):
-        hist = self.work.segment(0, self.L, self.w)
-        return hist[:, -1], self.work.guard_part(hist[:, :-1], 0)
-
-    def _backward(self):
-        return _segment_backward_step(self.work, 0, self.L, self.w,
-                                      self.lam, self.X0T, self.w_rhs,
-                                      self.w_lhs, self.lam0_scale)
-
-    def run(self, kind: str):
-        """Run program ``kind`` (``"fwd"``/``"bwd"``) on the buffers' contents.
-        On the card: the first run executes eagerly and captures the
-        program; every later run replays the graph."""
-        fn = self._forward if kind == "fwd" else self._backward
-        if not self.captures:
-            return fn()
-        if kind not in self.graphs:
-            with _capturable_linalg(self.work.prob):
-                out = fn()
-                t0 = time.perf_counter()
-                self.graphs[kind] = self._capture(fn)
-                self.capture_seconds += time.perf_counter() - t0
-            return out
-        graph, outputs, launches = self.graphs[kind]
-        graph.replay()
-        sk.add_launches(launches)
-        self.replays[kind] += 1
-        return outputs
-
-    @staticmethod
-    def _capture(fn):
-        """``(graph, outputs, launches)``: one call of ``fn`` captured. The
-        capture runs no kernel, so the launches its wrappers counted are
-        taken off the counters and added back at each replay."""
-        before = sk.launch_tally()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            outputs = fn()
-        launches = {k: n - before[k] for k, n in sk.launch_tally().items()}
-        sk.add_launches(launches, -1)
-        return graph, outputs, launches
-
-
-class SegmentGraphs:
-    """The segment programs of the chunked route, kept across evaluations:
-    one per problem (by identity: its tensors are the graphs' constants),
-    mesh, half-order and segment length. ``optimize_gate`` makes one per
-    run; a call without one makes its own."""
-
-    def __init__(self):
-        self._programs = {}
-
-    def programs(self, prob, mesh, m: int, L: int,
-                 local_prob) -> _SegmentPrograms:
-        key = (id(prob), id(mesh), m, L)
-        entry = self._programs.get(key)
-        if entry is None:
-            # the key's objects are held, so their ids stay theirs
-            entry = (prob, mesh, _SegmentPrograms(local_prob, m, L))
-            self._programs[key] = entry
-        return entry[2]
-
-    def stats(self) -> dict:
-        """Graphs captured, their capture seconds and replays by kind."""
-        progs = [e[2] for e in self._programs.values()]
-        return {"graphs": sum(len(p.graphs) for p in progs),
-                "capture_seconds": sum(p.capture_seconds for p in progs),
-                "replays": {k: sum(p.replays[k] for p in progs)
-                            for k in ("fwd", "bwd")}}
 
 
 def chunked_objective_and_gradient(prob, controls, pcof, target,
@@ -282,7 +133,8 @@ def chunked_objective_and_gradient(prob, controls, pcof, target,
         local, target_real = _local_columns(prob, target_real, mesh)
         ic_group = mesh.ic_group
     graphs = SegmentGraphs() if graphs is None else graphs
-    prog = graphs.programs(prob, mesh, m, L, local)
+    prog = graphs.programs(_SegmentPrograms, prob, m, L, mesh=mesh,
+                           local_prob=local)
     work, wd, dev = prog.work, prog.work.wd, prob.device
 
     def chunk_grid(k):

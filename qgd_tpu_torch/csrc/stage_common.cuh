@@ -1,4 +1,4 @@
-// Shared pieces of the two stage-recursion kernels (lhs.cu, rhs.cu).
+// Shared pieces of the stage-recursion kernels (lhs.cuh, rhs.cu).
 //
 // Both kernels take the generator stack A_k (k = 0..m-1) and the step
 // (dt on the device, or by value, and a sign) and multiply each element by

@@ -21,9 +21,12 @@ Pallas kernel (f32, m >= 2, ``forward.py:135-148``; in the hoisted build
 that is one launch at batch S·T), and the explicit half of a step goes
 through the RHS kernel for f32 tensors (JAX computes that half with XLA
 ops), as does every GMRES application of the stage operator (the RHS
-kernel at step sign -1, JAX's ``apply_lhs``). On the CPU the kernel
-wrappers run their plain versions; ``use_kernels=False`` is the plain
-route everywhere.
+kernel at step sign -1, JAX's ``apply_lhs``). The adjoint's pair ``(R,
+L)`` of one-step matrices, which JAX builds by XLA from one recursion,
+goes through the pair kernel under the LHS kernel's rule (one launch at
+batch S·T' in the hoisted build). On the CPU the kernel wrappers run
+their plain versions; ``use_kernels=False`` is the plain route
+everywhere.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ from .ops.linalg import (
 from .ops.stage_kernels import (
     hermite_lhs_matrix_kernel_call,
     hermite_rhs_kernel_call,
+    hermite_stage_pair_kernel_call,
+    stage_pair_plain,
 )
 from .problem import working_problem
 
@@ -92,10 +97,11 @@ def _warm_budget(prob):
 
 def _hoisted_per_step(m: int) -> int:
     """Live ``(2N, 2N)`` tensors per step and scenario at the peak of the
-    hoisted routes: the adjoint sweep holds R, L and L's factors or
-    inverse (3); the forward's one LHS-kernel launch holds the m-level
-    generator stack and its output (m + 1)."""
-    return max(3, m + 1)
+    hoisted routes: the adjoint's one pair-kernel launch holds the m-level
+    generator stack, R and L (m + 2); its sweep R, L and L's factors or
+    inverse (3); the forward's one LHS-kernel launch the stack and its
+    output (m + 1)."""
+    return max(3, m + 2)
 
 
 def _use_precomputed_stages(prob, m: int) -> str | None:
@@ -162,13 +168,26 @@ def _stage_matrices(prob, m: int, dt, P, Q, sign: float,
     return _stage_from_stack(out, m, dt, sign, use_kernels) if kernel else out
 
 
-def _stage_matrices_both(prob, m: int, dt, P, Q):
+def _pair_from_stack(A, m: int, dt, use_kernels: bool = True):
+    """Both one-step matrices ``(RHS, LHS)`` from generator stacks ``A
+    (..., m, n, n)``, each ``(..., n, n)``: one pair-kernel launch over the
+    whole batch where the LHS kernel's rule takes the stack, else the
+    plain recursion."""
+    if not _lhs_kernel_applies(A.dtype, m, use_kernels):
+        return stage_pair_plain(A, dt, m)
+    batch = A.shape[:-3]
+    flat = A.reshape((-1,) + A.shape[-3:]).contiguous()
+    R, L = hermite_stage_pair_kernel_call(flat, dt, m)
+    return (R.reshape(batch + R.shape[-2:]),
+            L.reshape(batch + L.shape[-2:]))
+
+
+def _stage_matrices_both(prob, m: int, dt, P, Q, use_kernels: bool = True):
     """Both one-step matrices ``(RHS, LHS)`` from one identity recursion
-    (plain torch, as in JAX)."""
-    A = assemble_generator_stack(prob, P, Q, m)
-    eye = torch.eye(prob.real_system_size, dtype=A.dtype, device=A.device)
-    D = scaled_derivatives(A, eye, m)
-    return build_rhs(D, dt, m), build_lhs(D, dt, m)
+    at the time points whose tables are ``P, Q (..., m, N_ops)``: the pair
+    kernel for f32 at m >= 2, plain torch otherwise (as JAX builds them)."""
+    return _pair_from_stack(assemble_generator_stack(prob, P, Q, m), m, dt,
+                            use_kernels)
 
 
 def _rhs_kernel_applies(w_dtype, use_kernels: bool) -> bool:
@@ -226,17 +245,25 @@ def _hoisted_inverses(prob, m: int, dt, M, transpose: bool = False,
     return X
 
 
-def _hoisted_stage_pairs(prob, m: int, dt, P, Q):
+def _hoisted_stage_pairs(prob, m: int, dt, P, Q, use_kernels: bool = True):
     """``(R, L)``, each ``(S, T', n, n)``: both one-step matrices at the time
-    points whose tables are ``P, Q (S, T', m, N_ops)``, built in chunks of
-    time points (plain torch, as :func:`_stage_matrices_both`)."""
+    points whose tables are ``P, Q (S, T', m, N_ops)``. As in
+    :func:`_stage_matrices`, the generator stacks are assembled in chunks
+    of time points; the f32 build is then one pair-kernel launch at batch
+    S·T', the plain build runs chunk by chunk."""
     S, T = P.shape[:2]
     n = prob.real_system_size
+    if _lhs_kernel_applies(P.dtype, m, use_kernels):
+        A = torch.empty((S, T, m, n, n), dtype=P.dtype, device=P.device)
+        for a, b in _chunks(T, S):
+            A[:, a:b] = assemble_generator_stack(prob, P[:, a:b], Q[:, a:b],
+                                                 m)
+        return _pair_from_stack(A, m, dt)
     R = torch.empty((S, T, n, n), dtype=P.dtype, device=P.device)
     L = torch.empty_like(R)
     for a, b in _chunks(T, S):
         R[:, a:b], L[:, a:b] = _stage_matrices_both(prob, m, dt, P[:, a:b],
-                                                    Q[:, a:b])
+                                                    Q[:, a:b], False)
     return R, L
 
 
@@ -361,22 +388,6 @@ def _step_states(prob, m: int, dt, P, Q, schulz_X0, use_kernels: bool = True,
                                     precond)
         yield w
         A_n = A_np1
-
-
-def _forward_trajectory(prob, m: int, dt, P, Q, schulz_X0,
-                        use_kernels: bool = True, refine_iters=None,
-                        precond=None):
-    """The trajectory ``(S, T+1, 2N, B)`` of :func:`_step_states`, written
-    into one preallocated tensor (the segmented route at L = 1)."""
-    w0 = prob.w0.expand(P.shape[0], -1, -1)
-    traj = torch.empty((w0.shape[0], prob.nsteps + 1) + tuple(w0.shape[1:]),
-                       dtype=w0.dtype, device=w0.device)
-    traj[:, 0] = w0
-    for k, w in enumerate(_step_states(prob, m, dt, P, Q, schulz_X0,
-                                       use_kernels, refine_iters,
-                                       precond=precond), 1):
-        traj[:, k] = w
-    return traj
 
 
 def _scenario_pcof(prob, pcof):
@@ -515,7 +526,7 @@ def eval_forward_complex(prob, controls, pcof, order: int = 2, **kwargs):
 
 
 def eval_adjoint(prob, controls, pcof, terminal_condition, order: int = 2,
-                 forcing=None):
+                 forcing=None, *, use_kernels: bool = True):
     """Backward adjoint propagation: with the forward step
     ``LHS_{n+1} w_{n+1} = RHS_n w_n`` the multipliers satisfy::
 
@@ -526,8 +537,10 @@ def eval_adjoint(prob, controls, pcof, terminal_condition, order: int = 2,
     ``terminal_condition`` is ``(S, 2N, B)`` (or ``(2N, B)`` for a 1-D
     ``pcof``), ``forcing`` the per-step adjoint source ``(S, T+1, 2N, B)``
     or ``(T+1, 2N, B)``. Returns ``(S, T+1, 2N, B)`` in the work dtype with
-    index n holding lambda_n; index 0 is zero. The stage matrices here are
-    plain torch, as in JAX: the sweep launches no kernel.
+    index n holding lambda_n; index 0 is zero. The pairs ``(R_n, L_n)``
+    come from the pair kernel in f32 (one launch over the hoisted time
+    points, or one per step when the stages are not hoisted);
+    ``use_kernels=False`` builds them in plain torch.
     """
     controls = as_control_tuple(controls)
     m = order // 2
@@ -550,7 +563,8 @@ def eval_adjoint(prob, controls, pcof, terminal_condition, order: int = 2,
     lam = lam_N
     if _use_precomputed_stages(wprob, m):
         # R and L at t_1..t_{N-1} (index k-1 holds time k)
-        R, L = _hoisted_stage_pairs(wprob, m, dt, P[:, 1:n], Q[:, 1:n])
+        R, L = _hoisted_stage_pairs(wprob, m, dt, P[:, 1:n], Q[:, 1:n],
+                                    use_kernels)
         LT = L.transpose(-1, -2)
         if prob.solver == "lu":
             lu, piv = factorize_stages(LT)
@@ -570,7 +584,8 @@ def eval_adjoint(prob, controls, pcof, terminal_condition, order: int = 2,
         X0T = (_drift_stage_inverse(wprob, m, dt, transpose=True)
                if prob.solver == "schulz" else None)
         for k in range(n - 1, 0, -1):
-            R, L = _stage_matrices_both(wprob, m, dt, P[:, k], Q[:, k])
+            R, L = _stage_matrices_both(wprob, m, dt, P[:, k], Q[:, k],
+                                        use_kernels)
             mu = R.transpose(-1, -2) @ lam + f(k)
             if prob.solver == "schulz":
                 LT = L.transpose(-1, -2)

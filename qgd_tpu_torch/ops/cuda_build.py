@@ -5,12 +5,12 @@ they compile with ``nvcc`` alone in seconds, one ``nvcc`` per source, all
 started together, then linked into one library::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
-         -Xcompiler -fPIC -c lhs.cu        # and rhs.cu, in parallel
-    nvcc -shared -o libhermite_stage.so lhs.o rhs.o
+         -Xcompiler -fPIC -c lhs.cu        # pair.cu, rhs.cu in parallel
+    nvcc -shared -o libhermite_stage.so lhs.o pair.o rhs.o
 
 The library is built at first use on a CUDA tensor, into
 ``qgd_tpu_torch/_build/<hash>/`` keyed by a hash of the sources, the
-shared header and the flags, and loaded with ``ctypes``. Nothing here
+shared headers and the flags, and loaded with ``ctypes``. Nothing here
 runs at import.
 """
 
@@ -29,8 +29,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("lhs.cu", "rhs.cu")
-HEADERS = ("stage_common.cuh",)
+SOURCES = ("lhs.cu", "pair.cu", "rhs.cu")
+HEADERS = ("stage_common.cuh", "lhs.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
@@ -127,6 +127,9 @@ def load_library() -> ctypes.CDLL:
         lib.hermite_lhs_matrix_f32.argtypes = [p, p, f, f, p, p, p, i, i, i,
                                                p]
         lib.hermite_lhs_matrix_f32.restype = i
+        lib.hermite_stage_pair_f32.argtypes = [p, p, f, p, p, p, p, i, i, i,
+                                               p]
+        lib.hermite_stage_pair_f32.restype = i
         lib.hermite_rhs_f32.argtypes = [p, p, f, f, p, p, p, p, i, i, i, i,
                                         p]
         lib.hermite_rhs_f32.restype = i

@@ -1,6 +1,7 @@
-"""The two stage-recursion kernels of the Hermite step: hand-written CUDA
-for Hopper (``csrc/lhs.cu``, ``csrc/rhs.cu``), each with its plain PyTorch
-version, an ``autograd.Function`` and a launch counter.
+"""The stage-recursion kernels of the Hermite step: hand-written CUDA for
+Hopper (``csrc/lhs.cuh`` behind ``csrc/lhs.cu`` and ``csrc/pair.cu``,
+``csrc/rhs.cu``), each with its plain PyTorch version, an
+``autograd.Function`` and a launch counter.
 
 * :func:`hermite_lhs_matrix_kernel_call` replaces the Pallas kernel
   ``qgd_tpu/ops/pallas_step.py:184`` (``hermite_lhs_matrix_kernel_call``):
@@ -14,6 +15,14 @@ version, an ``autograd.Function`` and a launch counter.
   memory and writes the result once. Larger n, and the levels past the
   first of m >= 3, take one launch per level of 128-row output tiles fed
   through a ring of asynchronous copies.
+* :func:`hermite_stage_pair_kernel_call`, the backward's pair ``(R, L)``
+  of one-step matrices ``sum_j dt^j c_j D_j`` and ``sum_j (-dt)^j c_j
+  D_j`` from one identity recursion: the counterpart of the JAX package's
+  XLA function ``qgd_tpu/forward.py:158`` (``_stage_matrices_both``), a
+  variant of the LHS kernels (``hermite_stage_pair_f32``,
+  ``csrc/pair.cu``) that shares every product and writes both sums. At
+  the main-path shape it does the LHS kernel's FMAs and moves one more
+  16.8 MB output: HBM bytes bound it.
 * :func:`hermite_rhs_kernel_call` replaces the Pallas kernel
   ``qgd_tpu/ops/pallas_step.py:91`` (``hermite_rhs_kernel_call``):
   ``A_stack (B, m, n, n)``, ``W (B, n, b)``, scalar ``dt`` -> ``(B, n, b)``
@@ -44,7 +53,8 @@ JAX.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``: one
 per call that launches the kernel, added where it launches and nowhere
 else; each also counts them by step sign (:func:`lhs_launches_by_sign`,
-:func:`rhs_launches_by_sign`). Reset the counters
+:func:`rhs_launches_by_sign`; the pair's recursion runs at sign +1).
+Reset the counters
 (:func:`reset_launch_counts`) just before the run they should
 attribute.
 """
@@ -83,6 +93,17 @@ def lhs_matrix_plain(A_stack: torch.Tensor, dt, m: int,
     # build_lhs weighs D_j by (-d)^j
     return build_lhs(scaled_derivatives(A_stack, eye, m),
                      d if sign == -1.0 else -d, m)
+
+
+def stage_pair_plain(A_stack: torch.Tensor, dt, m: int):
+    """``(B, m, n, n)`` -> ``(R, L)``, each ``(B, n, n)``: ``sum_j dt^j
+    c_j D_j`` and ``sum_j (-dt)^j c_j D_j`` of one identity recursion, in
+    ``A_stack.dtype`` (the JAX package's ``_stage_matrices_both``)."""
+    n = A_stack.shape[-1]
+    eye = torch.eye(n, dtype=A_stack.dtype, device=A_stack.device)
+    d = torch.as_tensor(dt, dtype=A_stack.dtype, device=A_stack.device)
+    D = scaled_derivatives(A_stack, eye, m)
+    return build_rhs(D, d, m), build_lhs(D, d, m)
 
 
 def rhs_plain(A_stack: torch.Tensor, W: torch.Tensor, dt, m: int,
@@ -143,12 +164,15 @@ def _check_sign(sign: float) -> float:
     return float(sign)
 
 
-def _launch_lhs(A_stack: torch.Tensor, dt, m: int,
-                sign: float) -> torch.Tensor:
+def _launch_stage(A_stack: torch.Tensor, dt, m: int, sign: float,
+                  pair: bool = False):
+    """One launch of the LHS kernels: ``out`` at step sign ``sign``, or
+    with ``pair`` the pair ``(R, L)`` (sign +1)."""
     from .cuda_build import load_library
 
+    what = "hermite_stage_pair_f32" if pair else "hermite_lhs_matrix_f32"
     if A_stack.device.type != "cuda":
-        raise ValueError("the LHS kernel takes CUDA tensors only")
+        raise ValueError(f"{what} takes CUDA tensors only")
     if A_stack.dim() != 4 or A_stack.shape[1] != m or \
             A_stack.shape[2] != A_stack.shape[3]:
         raise ValueError(f"A_stack must be (B, m={m}, n, n), got "
@@ -161,16 +185,26 @@ def _launch_lhs(A_stack: torch.Tensor, dt, m: int,
     with torch.cuda.device(dev):
         scratch = (torch.empty((B, m - 2, n, n), dtype=torch.float32,
                                device=dev) if m >= 3 else None)
-        out = torch.empty((B, n, n), dtype=torch.float32, device=dev)
-        err = lib.hermite_lhs_matrix_f32(
-            A_stack.data_ptr(), None if dt_t is None else dt_t.data_ptr(),
-            dt_value, sign, None if scratch is None else scratch.data_ptr(),
-            out.data_ptr(), _coeffs_arg(m), B, m, n,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "hermite_lhs_matrix_f32", f"B={B}, m={m}, n={n}")
-    hermite_lhs_matrix_kernel_call.launches += 1
-    hermite_lhs_matrix_kernel_call.launches_by_sign[sign] += 1
-    return out
+        outs = [torch.empty((B, n, n), dtype=torch.float32, device=dev)
+                for _ in range(2 if pair else 1)]
+        args = (A_stack.data_ptr(),
+                None if dt_t is None else dt_t.data_ptr(), dt_value)
+        tail = (_coeffs_arg(m), B, m, n,
+                torch.cuda.current_stream(dev).cuda_stream)
+        scratch_p = None if scratch is None else scratch.data_ptr()
+        if pair:
+            err = lib.hermite_stage_pair_f32(
+                *args, scratch_p, outs[0].data_ptr(), outs[1].data_ptr(),
+                *tail)
+        else:
+            err = lib.hermite_lhs_matrix_f32(*args, sign, scratch_p,
+                                             outs[0].data_ptr(), *tail)
+    _raise_on(err, what, f"B={B}, m={m}, n={n}")
+    counter = (hermite_stage_pair_kernel_call if pair
+               else hermite_lhs_matrix_kernel_call)
+    counter.launches += 1
+    counter.launches_by_sign[sign] += 1
+    return tuple(outs) if pair else outs[0]
 
 
 def _launch_rhs(A_stack: torch.Tensor, W: torch.Tensor, dt, m: int,
@@ -252,7 +286,7 @@ class HermiteLHSMatrix(torch.autograd.Function):
         ctx.m, ctx.sign = m, sign
         ctx.save_for_backward(A_stack, _save_dt(ctx, dt))
         if A_stack.device.type == "cuda":
-            return _launch_lhs(A_stack, dt, m, sign)
+            return _launch_stage(A_stack, dt, m, sign)
         return lhs_matrix_plain(A_stack, dt, m, sign)
 
     @staticmethod
@@ -266,6 +300,34 @@ class HermiteLHSMatrix(torch.autograd.Function):
             grads = torch.autograd.grad(out, inputs, g.to(out.dtype))
         ddt = grads[1].to(dt_t.dtype) if want_dt else None
         return grads[0].to(A_stack.dtype), ddt, None, None
+
+
+class HermiteStagePair(torch.autograd.Function):
+    """Pair-kernel forward on CUDA (plain forward on the CPU); backward
+    is the VJP of :func:`stage_pair_plain`; no forward-mode rule."""
+
+    jvp = staticmethod(_no_forward_rule)
+
+    @staticmethod
+    def forward(ctx, A_stack, dt, m):
+        ctx.m = m
+        ctx.save_for_backward(A_stack, _save_dt(ctx, dt))
+        if A_stack.device.type == "cuda":
+            return _launch_stage(A_stack, dt, m, 1.0, pair=True)
+        return stage_pair_plain(A_stack, dt, m)
+
+    @staticmethod
+    def backward(ctx, g_r, g_l):
+        A_stack, dt_t = ctx.saved_tensors
+        with torch.enable_grad():
+            a = A_stack.detach().requires_grad_(True)
+            d, want_dt = _dt_input(ctx, dt_t, 1)
+            inputs = [a, d] if want_dt else [a]
+            R, L = stage_pair_plain(a, d, ctx.m)
+            grads = torch.autograd.grad((R, L), inputs,
+                                        (g_r.to(R.dtype), g_l.to(L.dtype)))
+        ddt = grads[1].to(dt_t.dtype) if want_dt else None
+        return grads[0].to(A_stack.dtype), ddt, None
 
 
 class HermiteRHS(torch.autograd.Function):
@@ -312,6 +374,17 @@ def hermite_lhs_matrix_kernel_call(A_stack: torch.Tensor, dt, m: int,
     return HermiteLHSMatrix.apply(A_stack, dt, m, sign)
 
 
+def hermite_stage_pair_kernel_call(A_stack: torch.Tensor, dt, m: int):
+    """``A_stack (B, m, n, n)``, scalar ``dt`` -> ``(R, L)``, each ``(B, n,
+    n)``: ``sum_j dt^j c_j D_j`` and ``sum_j (-dt)^j c_j D_j`` of one
+    identity recursion. CPU: plain version. CUDA: the pair kernel (one
+    counted launch per call; at m >= 3 one more device launch per level
+    j >= 2)."""
+    if A_stack.device.type == "cpu":
+        return stage_pair_plain(A_stack, dt, m)
+    return HermiteStagePair.apply(A_stack, dt, m)
+
+
 def hermite_rhs_kernel_call(A_stack: torch.Tensor, W: torch.Tensor, dt,
                             m: int, sign: float = 1.0) -> torch.Tensor:
     """``A_stack (B, m, n, n)``, ``W (B, n, b)``, scalar ``dt`` ->
@@ -336,22 +409,25 @@ def hermite_rhs_kernel_launch(A_stack: torch.Tensor, W: torch.Tensor, dt,
     return _launch_rhs(A_stack, W, dt, m, sign)
 
 
+_WRAPPERS = {"hermite_lhs_matrix": hermite_lhs_matrix_kernel_call,
+             "hermite_rhs": hermite_rhs_kernel_call,
+             "hermite_stage_pair": hermite_stage_pair_kernel_call}
+
+
 def reset_launch_counts():
-    """Set both wrappers' launch counters to 0."""
-    hermite_lhs_matrix_kernel_call.launches = 0
-    hermite_lhs_matrix_kernel_call.launches_by_sign = {-1.0: 0, 1.0: 0}
-    hermite_rhs_kernel_call.launches = 0
-    hermite_rhs_kernel_call.launches_by_sign = {-1.0: 0, 1.0: 0}
+    """Set every wrapper's launch counters to 0."""
+    for name, f in _WRAPPERS.items():
+        f.launches = 0
+        # the pair's recursion runs at step sign +1 only
+        f.launches_by_sign = ({1.0: 0} if name == "hermite_stage_pair"
+                              else {-1.0: 0, 1.0: 0})
 
 
 reset_launch_counts()
 
-_WRAPPERS = {"hermite_lhs_matrix": hermite_lhs_matrix_kernel_call,
-             "hermite_rhs": hermite_rhs_kernel_call}
-
 
 def launch_tally() -> dict:
-    """Both counters by step sign: ``{(kernel, sign): n}``."""
+    """Every counter by step sign: ``{(kernel, sign): n}``."""
     return {(name, sign): n for name, f in _WRAPPERS.items()
             for sign, n in f.launches_by_sign.items()}
 
@@ -368,9 +444,9 @@ def add_launches(tally: dict, times: int = 1):
 
 
 def launch_counts() -> dict:
-    """``{"hermite_lhs_matrix": n, "hermite_rhs": n}``."""
-    return {"hermite_lhs_matrix": hermite_lhs_matrix_kernel_call.launches,
-            "hermite_rhs": hermite_rhs_kernel_call.launches}
+    """``{"hermite_lhs_matrix": n, "hermite_rhs": n, "hermite_stage_pair":
+    n}``."""
+    return {name: f.launches for name, f in _WRAPPERS.items()}
 
 
 def lhs_launches_by_sign() -> dict:

@@ -159,8 +159,9 @@ def optimize_gate(prob, controls, pcof_init, target, *, order: int = 4,
     :class:`OptimizationHistory`.
     """
     from .adjoint import objective_and_gradient
+    from .chunked import chunked_objective_and_gradient
     from .prefix import prefix_objective_and_gradient
-    from .segmented import segmented_objective_and_gradient
+    from .segmented import SegmentGraphs, segmented_objective_and_gradient
 
     _check_options(method, gradient_route, max_dispatch_steps)
     controls = as_control_tuple(controls)
@@ -200,10 +201,9 @@ def optimize_gate(prob, controls, pcof_init, target, *, order: int = 4,
     if n_segments is None:
         # past ~16k steps the plain route's O(T) hoisted tensors dominate
         n_segments = 0 if prob.nsteps < 16384 else -1
-    if max_dispatch_steps > 0:
-        from .chunked import SegmentGraphs, chunked_objective_and_gradient
-
-        graphs = SegmentGraphs()        # captured once, replayed each time
+    # the chunked and segmented routes' programs: captured once, replayed
+    # at every evaluation
+    graphs = SegmentGraphs()
 
     def value_parts_and_grad(pc):
         pct = torch.as_tensor(pc, dtype=torch.float64, device=prob.device)
@@ -226,7 +226,7 @@ def optimize_gate(prob, controls, pcof_init, target, *, order: int = 4,
             (j1, guard, ridge), grad = segmented_objective_and_gradient(
                 prob, controls, pct, target, order, cost_type=cost_type,
                 ridge_penalty_strength=ridge_penalty_strength,
-                n_segments=max(n_segments, 0))
+                n_segments=max(n_segments, 0), graphs=graphs)
         # one copy to the host per evaluation
         host = torch.cat([torch.stack([j1, guard, ridge]), grad]).cpu().numpy()
         j1, guard, ridge = host[:3]
@@ -544,7 +544,7 @@ def optimize_gate_multistart(prob, controls, pcofs_init, target, *,
     from .adjoint import objective_and_gradient
     from .objective import objective_value
     from .prefix import prefix_objective_and_gradient, prefix_objective_value
-    from .segmented import (segmented_objective_and_gradient,
+    from .segmented import (SegmentGraphs, segmented_objective_and_gradient,
                             segmented_objective_value)
 
     controls = as_control_tuple(controls)
@@ -559,6 +559,9 @@ def optimize_gate_multistart(prob, controls, pcofs_init, target, *,
     kw = dict(cost_type=cost_type,
               ridge_penalty_strength=ridge_penalty_strength)
     if gradient_route == "segmented":
+        # one set of programs per batch size, kept across iterations: the
+        # line search's first probe shares the gradient call's forward
+        kw["graphs"] = SegmentGraphs()
         oag = lambda pc: segmented_objective_and_gradient(
             prob, controls, pc, target, order, n_segments=n_segments, **kw)
         value_fn = lambda pc: segmented_objective_value(

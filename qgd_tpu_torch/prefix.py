@@ -24,8 +24,8 @@ table-VJP pass over all time points after the segment sweep.
 
 Kernels: a segment's ``R(t_left)`` and ``M(t_right)`` are LHS-kernel
 launches at batch S·L (sign +1 and -1) in f32; the backward's left-end
-pair ``(R, L)`` is the plain ``_stage_matrices_both``, as everywhere in
-the port. The prefix products are plain matmuls, as in JAX, where they sit
+pair ``(R, L)`` is one pair-kernel launch at the same batch. The prefix
+products are plain matmuls, as in JAX, where they sit
 outside any Pallas kernel.
 """
 
@@ -139,7 +139,7 @@ def _segment_maps(work, a: int, b: int, need_left: bool):
     Pw, Qw = work.Pw, work.Qw
     if need_left:
         R_left, M_left = _hoisted_stage_pairs(wprob, m, dt, Pw[:, a:b],
-                                              Qw[:, a:b])
+                                              Qw[:, a:b], work.use_kernels)
         Xeff_left = _eff_inverses(wprob, M_left, work.X0, work.sweeps)
         del M_left
     else:

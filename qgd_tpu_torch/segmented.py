@@ -14,7 +14,8 @@ throughout):
   is summed in f64 on the way.
 * **Backward.** Segments in reverse: re-forward the segment from its
   stored start state, build ``R(t_n)`` and ``L(t_n)`` at its L left
-  endpoints (plain torch, as in JAX), run the multiplier sweep
+  endpoints (in f32 one pair-kernel launch at batch S·L; JAX builds the
+  pair by XLA from one recursion), run the multiplier sweep
   ``L^T lam_n = R^T lam_{n+1} + f_n`` (``f_n`` the guard forcing, formed
   in f64) and pass the merged cotangents ``w_rhs lam_{n+1} - w_lhs
   lam_n`` through the VJP of the scaled-derivative stack with respect to
@@ -24,17 +25,52 @@ throughout):
 Peak memory is O(n_segments + L) states plus one segment's ``(S·L, 2N,
 2N)`` stage tensors. At L = 1 the stored segment starts ARE the
 trajectory, so that route keeps the trajectory, makes no re-forward and
-reads ``w_n`` straight from it.
+reads ``w_n`` straight from it; its backward builds each step's pair
+``(R, L)`` in the step (the pair kernel at batch S in f32).
 
-``solver="gmres"`` steps each forward and re-forward through the GMRES
-stage (no stage matrix is built there); its backward sweep solves the
-transposed stage densely by LU, as the JAX package's does.
+**Programs and CUDA graphs.** The step loops run as programs over static
+buffers (:class:`_Programs`): at general L one segment's forward and one
+segment's backward (:class:`_SegmentPrograms`), at L = 1 blocks of K
+steps, K the divisor of ``nsteps`` nearest ``_BLOCK_STEPS``
+(:class:`_BlockPrograms`: the forward writes the block's K states, the
+backward its K multipliers' table cotangents from the stored states). The
+host loads each span's tables, weights and incoming state or multiplier
+into the buffers and runs the program. On a CUDA problem each program
+runs eagerly once and is captured as a CUDA graph right after; every
+later span replays it, so a span costs one graph launch and a few copies
+on the host where the eager loops launch hundreds of operations per
+step. The host-chunked route (:mod:`qgd_tpu_torch.chunked`) runs the same
+segment programs for one control vector. A :class:`SegmentGraphs` keeps
+the programs across calls (``graphs=``); a call without one captures its
+own and replays them within the call. A capture or a replay that fails
+raises; nothing runs eagerly in its place. Two rules are fixed by the
+problem before any capture:
+
+* ``solver="gmres"`` runs its programs eagerly on the card: its
+  least-squares step (``ops.gmres._lstsq_min_norm``) is a
+  ``torch.linalg.svd``, which copies to the host, and no graph can hold
+  that copy. It steps each forward and re-forward through the GMRES stage
+  (no stage matrix is built there); its backward sweep solves the
+  transposed stage densely by LU, as the JAX package's does.
+* ``solver="lu"`` factorizes by cuSOLVER while its programs run and are
+  captured: at a batch of 128 x 128 matrices PyTorch's default is MAGMA's
+  batched LU, which cannot be captured.
+
+A CPU problem runs the same programs eagerly: that is the caller asking
+for the CPU. A graph replay launches the kernels its capture recorded
+without calling the kernel wrappers, so each replay adds its capture's
+launches to the wrappers' counters (``ops.stage_kernels.add_launches``)
+and the capture, which launches nothing, adds none: the counters read the
+launches made.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
 import os
+import time
 
 import torch
 
@@ -46,11 +82,11 @@ from .forward import (
     _warm_budget,
     _drift_stage_inverse,
     _forward_segment_scan,
-    _forward_trajectory,
     _hoisted_inverses,
     _hoisted_stage_pairs,
     _make_preconditioner,
     _stage_matrices_both,
+    _step_states,
 )
 from .objective import (
     guard_penalty_real,
@@ -66,6 +102,7 @@ from .ops.hermite import (
     build_lhs,
     hermite_coefficients,
 )
+from .ops import stage_kernels as sk
 from .ops.linalg import (
     REFINE_SWEEPS_F32,
     factorize_stages,
@@ -79,6 +116,15 @@ from .problem import working_problem
 # Budget of the stored states on the card for the automatic segment rule
 # (GB), read once at import, as in the JAX package.
 _SEG_STATE_BUDGET_GB = float(os.environ.get("QGD_SEG_STATE_BUDGET_GB", "4"))
+
+# Steps per block of the L = 1 route's programs (_block_length): about a
+# segment program's length in the chunked route, whose graphs of 100 steps
+# capture in a fraction of a second.
+_BLOCK_STEPS = 100
+
+# Program sets a SegmentGraphs keeps: a line search probes at every batch
+# size its shrinking set of starts takes, and each size is one set.
+_MAX_PROGRAM_SETS = 4
 
 
 def _divisors(n: int) -> list:
@@ -140,6 +186,13 @@ def _auto_segments(prob, nsteps: int, batch: int,
     fits = [d for d in _divisors(nsteps) if S_sqrt <= d <= max_S
             and d < nsteps]
     return max(fits) if fits else S_sqrt
+
+
+def _block_length(nsteps: int) -> int:
+    """The L = 1 route's block of steps: the divisor of ``nsteps`` nearest
+    ``_BLOCK_STEPS``, the smaller on a tie, so that every block has the
+    shape of the first and one captured program serves them all."""
+    return min(_divisors(nsteps), key=lambda d: (abs(d - _BLOCK_STEPS), d))
 
 
 def _segment_count(prob, n_segments: int, batch: int) -> int:
@@ -258,8 +311,9 @@ class _Work:
         return f.to(self.wd)
 
 
-def _snapshot_pass(work, n_seg: int, keep: bool):
-    """The segmented forward: ``(w_final, guard, starts)`` with the guard
+def _snapshot_pass(work, progs, n_seg: int, keep: bool):
+    """The segmented forward, segment by segment through ``progs``
+    (:class:`_SegmentPrograms`): ``(w_final, guard, starts)`` with the guard
     penalty ``(S,)`` f64 and, if ``keep``, the segment-start states ``(S,
     n_seg, 2N, B)``."""
     T = work.prob.nsteps
@@ -271,18 +325,27 @@ def _snapshot_pass(work, n_seg: int, keep: bool):
     for k in range(n_seg):
         if keep:
             starts[:, k] = w
-        hist = work.segment(k * L, (k + 1) * L, w)
-        guard = guard + work.guard_part(hist[:, :-1], k * L)
-        w = hist[:, -1]
+        progs.load(work, k * L)
+        progs.w.copy_(w)
+        w, g = progs.run("fwd")
+        guard = guard + g
+    w = w.clone()                     # outlives the next replay
     guard = guard + work.guard_part(w[:, None], T)
     return w, guard * work.dt64 / work.prob.tf, starts
 
 
-def _l1_forward(work):
-    """The L = 1 forward: ``(trajectory (S, T+1, 2N, B), guard)``."""
-    traj = _forward_trajectory(work.wprob, work.m, work.dt, work.Pw,
-                               work.Qw, work.X0, work.use_kernels,
-                               work.sweeps, work.precond)
+def _l1_forward(work, progs):
+    """The L = 1 forward, block by block through ``progs``
+    (:class:`_BlockPrograms`): ``(trajectory (S, T+1, 2N, B), guard)``."""
+    T, K = work.prob.nsteps, progs.L
+    w0 = work.wprob.w0.expand(work.Pw.shape[0], -1, -1)
+    traj = torch.empty((w0.shape[0], T + 1) + tuple(w0.shape[1:]),
+                       dtype=w0.dtype, device=w0.device)
+    traj[:, 0] = w0
+    for a in range(0, T, K):
+        progs.load(work, a)
+        progs.w.copy_(traj[:, a])
+        traj[:, a + 1:a + K + 1] = progs.run("fwd")
     guard = guard_penalty_real(traj, work.dt64, work.prob.tf,
                                work.prob.guard_subspace_projector)
     return traj, guard
@@ -304,58 +367,86 @@ def _terminal_multiplier(work, p_f, q_f, g_T, schulz: bool):
     return stage_solve_transposed(lhs_f, g_T.to(wd))
 
 
-def _l1_backward(work, traj, lam_T, w_rhs, w_lhs, p_f, q_f):
-    """The L = 1 backward: multipliers by a per-step sweep reading the
-    stored trajectory, then the table cotangents ``(S, T+1, m, N_ops)``."""
-    prob, m, wd = work.prob, work.m, work.wd
-    S, T = traj.shape[0], prob.nsteps
-    X0T = (_drift_stage_inverse(work.wprob, m, work.dt, transpose=True)
-           if work.schulz else None)
+def _sweep(lam_b, L: int, step, lam0_scale):
+    """The multipliers ``(S, L+1, 2N, B)`` of a span of L steps, index i
+    holding lambda at its step i: ``lam_b`` at L, then ``step(i,
+    lambda_{i+1})`` for i = L-1 .. 0; ``lam0_scale`` multiplies index 0 (0
+    for the span that starts at t_0, whose state is fixed)."""
+    lam_seg = torch.empty((lam_b.shape[0], L + 1) + tuple(lam_b.shape[1:]),
+                          dtype=lam_b.dtype, device=lam_b.device)
+    lam_seg[:, L] = lam_b
+    lam = lam_b
+    for i in range(L - 1, -1, -1):
+        lam = step(i, lam)
+        lam_seg[:, i] = lam
+    lam_seg[:, 0] *= lam0_scale
+    return lam_seg
+
+
+def _block_backward_step(work, states, lam_b, X0T, w_rhs, w_lhs,
+                         lam0_scale):
+    """One block of the L = 1 backward over the tables of ``work`` (its
+    first L+1 time points): the multiplier sweep from ``lam_b`` (lambda at
+    the block's right end), each step's pair ``(R, L)`` built in the step,
+    and the table cotangents ``(S, L, m, N_ops)`` at the block's L left
+    endpoints, whose states are ``states (S, L, 2N, B)``. Returns
+    ``(lambda at the block's first step, cotP, cotQ)``."""
+    prob, m, L = work.prob, work.m, states.shape[1]
+    f = work.forcing(states, 0)
     warm = _warm_budget(work.wprob)
-    # lam[:, n] = lambda_n for n = 0..T; lam[:, T+1] = 0 makes the terminal
-    # cotangent -w_lhs lam_T the same formula as every step's
-    lam = torch.empty((S, T + 2) + tuple(lam_T.shape[1:]), dtype=wd,
-                      device=prob.device)
-    lam[:, T] = lam_T
-    lam[:, T + 1] = 0.0
-    lam_next = lam_T
-    for n in range(T - 1, -1, -1):
-        f_n = work.forcing(traj[:, n:n + 1], n)[:, 0]
-        R, L = _stage_matrices_both(work.wprob, m, work.dt, work.Pw[:, n],
-                                    work.Qw[:, n])
-        mu = R.transpose(-1, -2) @ lam_next + f_n
+
+    def step(i, lam):
+        R, Lm = _stage_matrices_both(work.wprob, m, work.dt, work.Pw[:, i],
+                                     work.Qw[:, i], work.use_kernels)
+        mu = R.transpose(-1, -2) @ lam + f[:, i]
         if work.schulz:
-            LT = L.transpose(-1, -2)
+            LT = Lm.transpose(-1, -2)
             XT = schulz_inverse_auto(LT, prob.schulz_iters, X0=X0T,
                                      warm_iters=warm)
-            lam_next = inverse_stage_solve(LT, XT, mu, work.sweeps)
-        else:
-            lam_next = stage_solve_transposed(L, mu)
-        if n == 0:
-            # lambda_0 carries no multiplier: the initial state is fixed
-            lam_next = lam_next * 0.0
-        lam[:, n] = lam_next
-    # tables at the T step left endpoints, then the terminal tables at tf
-    P_cot = torch.cat([work.Pw[:, :T], p_f[:, None]], dim=1)
-    Q_cot = torch.cat([work.Qw[:, :T], q_f[:, None]], dim=1)
-    return _table_cotangents(work.wprob, m, w_rhs, w_lhs, P_cot, Q_cot, lam,
-                             traj)
+            return inverse_stage_solve(LT, XT, mu, work.sweeps)
+        return stage_solve_transposed(Lm, mu)
+
+    lam_seg = _sweep(lam_b, L, step, lam0_scale)
+    cotP, cotQ = _table_cotangents(work.wprob, m, w_rhs, w_lhs,
+                                   work.Pw[:, :L], work.Qw[:, :L], lam_seg,
+                                   states)
+    return lam_seg[:, 0], cotP, cotQ
+
+
+def _l1_backward(work, progs, traj, lam_T, w_rhs, w_lhs, p_f, q_f):
+    """The L = 1 backward, block by block through ``progs``
+    (:class:`_BlockPrograms`) reading the stored trajectory: the table
+    cotangents ``(S, T+1, m, N_ops)``."""
+    m, T, K = work.m, work.prob.nsteps, progs.L
+    cotP = torch.empty((work.Pw.shape[0], T + 1) + tuple(work.Pw.shape[2:]),
+                       dtype=work.wd, device=work.Pw.device)
+    cotQ = torch.empty_like(cotP)
+    lam = lam_T
+    for a in range(T - K, -1, -K):
+        progs.load(work, a)
+        progs.states.copy_(traj[:, a:a + K])
+        progs.lam.copy_(lam)
+        lam, cotP[:, a:a + K], cotQ[:, a:a + K] = progs.run("bwd")
+    # terminal index T: only the LHS term survives (no step starts at T)
+    cotP[:, T], cotQ[:, T] = _table_cot(work.wprob, m, p_f, q_f, traj[:, T],
+                                        -w_lhs * lam_T[:, None])
+    return cotP, cotQ
 
 
 def _segment_backward_step(work, a: int, b: int, w_start, lam_b, X0T,
-                           w_rhs, w_lhs, lam0_scale=None):
+                           w_rhs, w_lhs, lam0_scale):
     """One segment of the general-L backward (module docstring), steps
     ``a..b``: re-forward from ``w_start``, the multiplier sweep from
     ``lam_b`` (lambda at step b) and the table cotangents ``(S, L, m,
-    N_ops)`` at the segment's L left endpoints. ``lam0_scale``, if given,
-    multiplies lambda at step a before the cotangents are formed (0 for
-    the segment that starts at t_0, whose state is fixed). Returns
-    ``(lambda_a, cotP, cotQ)``."""
+    N_ops)`` at the segment's L left endpoints. ``lam0_scale`` multiplies
+    lambda at step a before the cotangents are formed (0 for the segment
+    that starts at t_0, whose state is fixed). Returns ``(lambda_a, cotP,
+    cotQ)``."""
     m, L = work.m, b - a
     hist = work.segment(a, b, w_start)                       # re-forward
     f_seg = work.forcing(hist[:, :-1], a)
     R, Lm = _hoisted_stage_pairs(work.wprob, m, work.dt, work.Pw[:, a:b],
-                                 work.Qw[:, a:b])
+                                 work.Qw[:, a:b], work.use_kernels)
     LT = Lm.transpose(-1, -2)
     del Lm
     if work.schulz:
@@ -369,43 +460,243 @@ def _segment_backward_step(work, a: int, b: int, w_start, lam_b, X0T,
         def solve(i, mu):
             return solve_factored(lu[:, i], piv[:, i], mu)
 
-    lam_seg = torch.empty_like(hist)            # lam_seg[:, i] = lam_{a+i}
-    lam_seg[:, L] = lam_b
-    lam = lam_b
-    for i in range(L - 1, -1, -1):
-        lam = solve(i, R[:, i].transpose(-1, -2) @ lam + f_seg[:, i])
-        lam_seg[:, i] = lam
-    if lam0_scale is not None:
-        lam_seg[:, 0] *= lam0_scale
+    lam_seg = _sweep(lam_b, L, lambda i, lam: solve(
+        i, R[:, i].transpose(-1, -2) @ lam + f_seg[:, i]), lam0_scale)
     cotP, cotQ = _table_cotangents(work.wprob, m, w_rhs, w_lhs,
                                    work.Pw[:, a:b], work.Qw[:, a:b], lam_seg,
                                    hist)
     return lam_seg[:, 0], cotP, cotQ
 
 
-def _segment_backward(work, n_seg: int, starts, w_final, lam_T, w_rhs,
-                      w_lhs, p_f, q_f):
-    """The general-L backward (module docstring): the table cotangents
-    ``(S, T+1, m, N_ops)``."""
-    prob, m, wd = work.prob, work.m, work.wd
-    T = prob.nsteps
+def _segment_backward(work, progs, n_seg: int, starts, w_final, lam_T,
+                      w_rhs, w_lhs, p_f, q_f):
+    """The general-L backward (module docstring), segment by segment in
+    reverse through ``progs`` (:class:`_SegmentPrograms`): the table
+    cotangents ``(S, T+1, m, N_ops)``."""
+    m, T = work.m, work.prob.nsteps
     L = T // n_seg
-    X0T = (_drift_stage_inverse(work.wprob, m, work.dt, transpose=True)
-           if work.schulz else None)
     cotP = torch.empty((work.Pw.shape[0], T + 1) + tuple(work.Pw.shape[2:]),
-                       dtype=wd, device=prob.device)
+                       dtype=work.wd, device=work.Pw.device)
     cotQ = torch.empty_like(cotP)
     lam_b = lam_T
     for k in range(n_seg - 1, -1, -1):
-        a, b = k * L, (k + 1) * L
-        # the initial state is fixed: lambda_0 carries no multiplier
-        lam_b, cotP[:, a:b], cotQ[:, a:b] = _segment_backward_step(
-            work, a, b, starts[:, k], lam_b, X0T, w_rhs, w_lhs,
-            0.0 if k == 0 else None)
+        a = k * L
+        progs.load(work, a)
+        progs.w.copy_(starts[:, k])
+        progs.lam.copy_(lam_b)
+        lam_b, cotP[:, a:a + L], cotQ[:, a:a + L] = progs.run("bwd")
     # terminal index T: only the LHS term survives (no step starts at T)
     cotP[:, T], cotQ[:, T] = _table_cot(work.wprob, m, p_f, q_f, w_final,
                                         -w_lhs * lam_T[:, None])
     return cotP, cotQ
+
+
+def _captures(prob) -> bool:
+    """Whether the programs of ``prob`` run as CUDA graphs: on a CUDA
+    problem, unless ``solver="gmres"`` (module docstring)."""
+    return prob.device.type == "cuda" and prob.solver != "gmres"
+
+
+@contextlib.contextmanager
+def _capturable_linalg(prob):
+    """cuSOLVER for the LU factorizations of an ``"lu"`` problem's
+    programs while they run eagerly and are captured (module docstring);
+    PyTorch's choice is restored after."""
+    if prob.solver != "lu":
+        yield
+        return
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
+
+
+class _Programs:
+    """The forward and backward programs (``"fwd"``, ``"bwd"``, defined by
+    a subclass) of a span of ``L`` steps of ``S`` scenarios of ``prob`` at
+    half-order ``m``, over static buffers, with the call's refinement
+    sweeps and kernel routing.
+
+    Inputs, written by the caller before each run (:meth:`load` writes the
+    tables, weights and ``lam0_scale`` of a span of a whole-horizon
+    :class:`_Work`): ``P``, ``Q`` ``(S, L+1, m, N_ops)`` (the work dtype)
+    the tables at the span's L+1 time points; ``tau (L+1,)`` the trapezoid
+    weights at them (f64); ``w`` the start state and ``lam`` the multiplier
+    at the span's right end, ``(S, 2N, B)``; ``lam0_scale`` 0 for the span
+    that starts at t_0, else 1. On the card a run's outputs live in the
+    graph's memory until its next replay.
+    """
+
+    def __init__(self, prob, m: int, L: int, S: int = 1,
+                 refine_sweeps=None, use_kernels: bool = True):
+        dev, wd = prob.device, prob.work_dtype
+        self.L = L
+        self.P = torch.zeros((S, L + 1, m, prob.N_operators), dtype=wd,
+                             device=dev)
+        self.Q = torch.zeros_like(self.P)
+        self.tau = torch.ones(L + 1, dtype=torch.float64, device=dev)
+        self.w = torch.zeros((S, prob.real_system_size,
+                              prob.N_initial_conditions), dtype=wd,
+                             device=dev)
+        self.lam = torch.zeros_like(self.w)
+        self.lam0_scale = torch.ones((), dtype=wd, device=dev)
+        self.work = _Work(prob, self.P, self.Q, m, refine_sweeps,
+                          use_kernels, prob.solver == "schulz", tau=self.tau)
+        self.w_rhs, self.w_lhs = _cot_weights(m, self.work.dt64, wd, dev)
+        self.X0T = (_drift_stage_inverse(self.work.wprob, m, self.work.dt,
+                                         transpose=True)
+                    if self.work.schulz else None)
+        self.captures = _captures(prob)
+        self.graphs = {}          # kind -> (graph, outputs, launches)
+        self.capture_seconds = 0.0
+        self.replays = {"fwd": 0, "bwd": 0}
+
+    def load(self, work, a: int):
+        """The tables and weights of the span starting at step ``a`` of
+        ``work`` (the call's whole-horizon :class:`_Work`) into the
+        buffers, and its ``lam0_scale``."""
+        b = a + self.L + 1
+        self.P.copy_(work.Pw[:, a:b])
+        self.Q.copy_(work.Qw[:, a:b])
+        self.tau.copy_(work.tau[a:b])
+        self.lam0_scale.fill_(0.0 if a == 0 else 1.0)
+
+    def run(self, kind: str):
+        """Run program ``kind`` (``"fwd"``/``"bwd"``) on the buffers'
+        contents. On the card: the first run executes eagerly and captures
+        the program; every later run replays the graph."""
+        fn = self._forward if kind == "fwd" else self._backward
+        if not self.captures:
+            return fn()
+        if kind not in self.graphs:
+            with _capturable_linalg(self.work.prob):
+                out = fn()
+                t0 = time.perf_counter()
+                self.graphs[kind] = self._capture(fn)
+                self.capture_seconds += time.perf_counter() - t0
+            return out
+        graph, outputs, launches = self.graphs[kind]
+        graph.replay()
+        sk.add_launches(launches)
+        self.replays[kind] += 1
+        return outputs
+
+    @staticmethod
+    def _capture(fn):
+        """``(graph, outputs, launches)``: one call of ``fn`` captured. The
+        capture runs no kernel, so the launches its wrappers counted are
+        taken off the counters and added back at each replay."""
+        before = sk.launch_tally()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = fn()
+        launches = {k: n - before[k] for k, n in sk.launch_tally().items()}
+        sk.add_launches(launches, -1)
+        return graph, outputs, launches
+
+
+class _SegmentPrograms(_Programs):
+    """One segment of the general-L route: ``"fwd"`` returns ``(w_end,
+    guard_partial (S,) f64)`` from ``w``; ``"bwd"`` returns
+    ``(lambda_start, cotP, cotQ)`` from ``w`` and ``lam``
+    (:func:`_segment_backward_step`)."""
+
+    def _forward(self):
+        hist = self.work.segment(0, self.L, self.w)
+        return hist[:, -1], self.work.guard_part(hist[:, :-1], 0)
+
+    def _backward(self):
+        return _segment_backward_step(self.work, 0, self.L, self.w,
+                                      self.lam, self.X0T, self.w_rhs,
+                                      self.w_lhs, self.lam0_scale)
+
+
+class _BlockPrograms(_Programs):
+    """A block of ``L`` steps of the L = 1 route, whose states are kept:
+    ``"fwd"`` returns the states after each of the block's steps ``(S, L,
+    2N, B)`` from ``w``; ``"bwd"`` returns ``(lambda at the block's first
+    step, cotP, cotQ)`` from ``lam`` and the buffer ``states (S, L, 2N,
+    B)``, the stored states at the block's L left endpoints
+    (:func:`_block_backward_step`)."""
+
+    def __init__(self, prob, m: int, L: int, S: int = 1,
+                 refine_sweeps=None, use_kernels: bool = True):
+        super().__init__(prob, m, L, S, refine_sweeps, use_kernels)
+        self.states = torch.zeros((S, L) + tuple(self.w.shape[1:]),
+                                  dtype=self.w.dtype, device=self.w.device)
+
+    def _forward(self):
+        work = self.work
+        out = torch.empty_like(self.states)
+        for k, w in enumerate(_step_states(
+                work.wprob, work.m, work.dt, work.Pw, work.Qw, work.X0,
+                work.use_kernels, work.sweeps, precond=work.precond,
+                w_start=self.w)):
+            out[:, k] = w
+        return out
+
+    def _backward(self):
+        return _block_backward_step(self.work, self.states, self.lam,
+                                    self.X0T, self.w_rhs, self.w_lhs,
+                                    self.lam0_scale)
+
+
+class SegmentGraphs:
+    """Programs (:class:`_SegmentPrograms`, :class:`_BlockPrograms`) kept
+    across calls, each set captured once on the card: one per program
+    class, problem (by identity: its tensors are the graphs' constants),
+    mesh, half-order, span length, batch, refinement sweeps and kernel
+    routing. At most ``_MAX_PROGRAM_SETS`` sets are kept, the least
+    recently used dropped first. ``optimize_gate`` and
+    ``optimize_gate_multistart`` make one per run; a call without one makes
+    its own."""
+
+    def __init__(self):
+        self._programs = collections.OrderedDict()
+
+    def programs(self, cls, prob, m: int, L: int, S: int = 1, *,
+                 mesh=None, local_prob=None, refine_sweeps=None,
+                 use_kernels: bool = True) -> _Programs:
+        """The ``cls`` programs of ``local_prob`` (default ``prob``)."""
+        key = (cls, id(prob), id(mesh), m, L, S, refine_sweeps, use_kernels)
+        entry = self._programs.get(key)
+        if entry is None:
+            # the key's objects are held, so their ids stay theirs
+            entry = (prob, mesh, cls(prob if local_prob is None
+                                     else local_prob, m, L, S,
+                                     refine_sweeps, use_kernels))
+            self._programs[key] = entry
+            while len(self._programs) > _MAX_PROGRAM_SETS:
+                self._programs.popitem(last=False)
+        self._programs.move_to_end(key)
+        return entry[2]
+
+    def stats(self) -> dict:
+        """Graphs captured, their capture seconds and replays by kind, over
+        the program sets kept."""
+        progs = [e[2] for e in self._programs.values()]
+        return {"graphs": sum(len(p.graphs) for p in progs),
+                "capture_seconds": sum(p.capture_seconds for p in progs),
+                "replays": {k: sum(p.replays[k] for p in progs)
+                            for k in ("fwd", "bwd")}}
+
+
+def _call_programs(graphs, prob, m: int, n_seg: int, S: int,
+                   refine_sweeps, use_kernels: bool) -> _Programs:
+    """The programs a segmented call runs: blocks of ``_block_length(T)``
+    steps at L = 1, segments of L steps otherwise, from ``graphs`` (a new
+    :class:`SegmentGraphs` when ``None``)."""
+    T = prob.nsteps
+    graphs = SegmentGraphs() if graphs is None else graphs
+    if n_seg == T:
+        return graphs.programs(_BlockPrograms, prob, m, _block_length(T), S,
+                               refine_sweeps=refine_sweeps,
+                               use_kernels=use_kernels)
+    return graphs.programs(_SegmentPrograms, prob, m, T // n_seg, S,
+                           refine_sweeps=refine_sweeps,
+                           use_kernels=use_kernels)
 
 
 def segmented_objective_and_gradient(prob, controls, pcof, target,
@@ -415,7 +706,8 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
                                      n_segments: int = 0, *,
                                      use_kernels: bool = True,
                                      refine_sweeps: int | None = None,
-                                     ic_group=None):
+                                     ic_group=None,
+                                     graphs: SegmentGraphs | None = None):
     """Objective parts and gradient for a batch of control vectors, with
     memory bounded by the segment count (module docstring).
 
@@ -436,6 +728,10 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
     traces, the guard and the gradient are summed over it, as
     ``adjoint.objective_and_gradient`` sums them. The automatic segment
     count is this rank's: its scenarios and its columns.
+
+    ``graphs``: the :class:`SegmentGraphs` to take the step loops'
+    programs from and keep them in (captured once per problem, batch and
+    span; a call without one captures its own).
     """
     controls = as_control_tuple(controls)
     pcof, single = _scenario_pcof(prob, pcof)
@@ -446,16 +742,18 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
     with torch.enable_grad():
         pcof_leaf = pcof.clone().requires_grad_(True)
         P, Q = control_tables(controls, pcof_leaf, ts, m)
-    work = _Work(prob, P, Q, m, refine_sweeps, use_kernels,
-                 prob.solver == "schulz")
+    work = _Work(prob, P, Q, m, refine_sweeps, use_kernels, False)
     wd = work.wd
+    progs = _call_programs(graphs, prob, m, n_seg, pcof.shape[0],
+                           refine_sweeps, use_kernels)
 
     # ---------------- forward: final state, guard penalty -----------------
     if n_seg == T:
-        traj, guard = _l1_forward(work)
+        traj, guard = _l1_forward(work, progs)
         w_final = traj[:, T]
     else:
-        w_final, guard, starts = _snapshot_pass(work, n_seg, keep=True)
+        w_final, guard, starts = _snapshot_pass(work, progs, n_seg,
+                                                keep=True)
     w_final64 = w_final.to(torch.float64)
     j1, dj1 = terminal_cost_and_grad(w_final64, target_on_device(prob, target),
                                      prob.N_ess_levels, cost_type, ic_group)
@@ -472,10 +770,11 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
     # ---------------- backward, table cotangents, pcof chain rule ---------
     w_rhs, w_lhs = _cot_weights(m, dt64, wd, prob.device)
     if n_seg == T:
-        cotP, cotQ = _l1_backward(work, traj, lam_T, w_rhs, w_lhs, p_f, q_f)
+        cotP, cotQ = _l1_backward(work, progs, traj, lam_T, w_rhs, w_lhs,
+                                  p_f, q_f)
     else:
-        cotP, cotQ = _segment_backward(work, n_seg, starts, w_final, lam_T,
-                                       w_rhs, w_lhs, p_f, q_f)
+        cotP, cotQ = _segment_backward(work, progs, n_seg, starts, w_final,
+                                       lam_T, w_rhs, w_lhs, p_f, q_f)
     (grad,) = torch.autograd.grad(
         (P, Q), pcof_leaf,
         (cotP.to(torch.float64), cotQ.to(torch.float64)))
@@ -502,12 +801,15 @@ def segmented_objective_value(prob, controls, pcof, target, order: int = 4,
                               n_segments: int = 0, *,
                               use_kernels: bool = True,
                               refine_sweeps: int | None = None,
-                              ic_group=None):
+                              ic_group=None,
+                              graphs: SegmentGraphs | None = None):
     """Value only (one forward pass, no adjoint work): ``j1 + guard +
     ridge``, ``(S,)`` float64 (a scalar for a 1-D ``pcof``). The line-search
     probe of ``optimize_gate_multistart(gradient_route="segmented")``; both
     kernels run at batch S (the LHS kernel at S·L per segment).
-    ``ic_group`` as in :func:`segmented_objective_and_gradient`."""
+    ``ic_group`` and ``graphs`` as in
+    :func:`segmented_objective_and_gradient`, whose forward programs this
+    runs."""
     controls = as_control_tuple(controls)
     pcof, single = _scenario_pcof(prob, pcof)
     pcof = pcof.detach()
@@ -515,13 +817,14 @@ def segmented_objective_value(prob, controls, pcof, target, order: int = 4,
     m = order // 2
     _, ts = _time_grid(prob)
     P, Q = control_tables(controls, pcof, ts, m)
-    work = _Work(prob, P, Q, m, refine_sweeps, use_kernels,
-                 prob.solver == "schulz")
+    work = _Work(prob, P, Q, m, refine_sweeps, use_kernels, False)
+    progs = _call_programs(graphs, prob, m, n_seg, pcof.shape[0],
+                           refine_sweeps, use_kernels)
     if n_seg == prob.nsteps:
-        traj, guard = _l1_forward(work)
+        traj, guard = _l1_forward(work, progs)
         w_final = traj[:, -1]
     else:
-        w_final, guard, _ = _snapshot_pass(work, n_seg, keep=False)
+        w_final, guard, _ = _snapshot_pass(work, progs, n_seg, keep=False)
     j1 = terminal_cost(w_final.to(torch.float64),
                        target_on_device(prob, target), prob.N_ess_levels,
                        cost_type, ic_group)

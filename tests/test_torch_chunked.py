@@ -36,7 +36,7 @@ import qgd_tpu  # noqa: E402
 from qgd_tpu.chunked import _chunk_divisor as j_divisor  # noqa: E402
 from qgd_tpu.chunked import chunked_objective_and_gradient as j_chunked  # noqa
 import qgd_tpu_torch as qt  # noqa: E402
-from qgd_tpu_torch import chunked  # noqa: E402
+from qgd_tpu_torch import chunked, segmented  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -116,13 +116,15 @@ def test_chunk_rules_match_jax():
     (jparts, jgrad), (tparts, tgrad) = out
     assert _rel(tgrad, jgrad) <= TOL
     assert all(_rel(t, j) <= TOL for t, j in zip(tparts, jparts))
-    # which problems capture their segment programs (chunked docstring):
-    # a CUDA problem unless its solver is GMRES; a CPU problem never
+    # which problems capture their segment programs (the segmented
+    # module's docstring, whose programs the chunked route runs): a CUDA
+    # problem unless its solver is GMRES; a CPU problem never
     card = lambda solver: types.SimpleNamespace(
         device=torch.device("cuda"), solver=solver)
-    assert [chunked._captures(card(s)) for s in ("lu", "schulz", "gmres")] \
+    assert [segmented._captures(card(s))
+            for s in ("lu", "schulz", "gmres")] \
         == [True, True, False]
-    assert not chunked._captures(tprob)
+    assert not segmented._captures(tprob)
 
 
 def test_optimize_gate_chunked_route(tmp_path, monkeypatch):

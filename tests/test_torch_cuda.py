@@ -49,10 +49,15 @@ SHAPES = [(3, 16, 4), (2, 130, 11), (4, 64, 8), (2, 256, 8)]
 @pytest.mark.parametrize("m", [1, 2, 3, 6])
 @pytest.mark.parametrize("B,n,b", SHAPES)
 def test_lhs_kernel_matches_plain(cuda, m, B, n, b):
+    """The LHS kernel and its pair variant (the backward's (R, L) from one
+    recursion), each against its plain version."""
     A, _ = _inputs(m, B, m, n, b, cuda)
     out = qt.ops.hermite_lhs_matrix_kernel_call(A, 0.05, m)
+    R, L = qt.ops.hermite_stage_pair_kernel_call(A, 0.05, m)
     torch.cuda.synchronize()
     assert _rel_err(out, sk.lhs_matrix_plain(A, 0.05, m)) <= REL_TOL
+    for x, ref in zip((R, L), sk.stage_pair_plain(A, 0.05, m)):
+        assert _rel_err(x, ref) <= REL_TOL
 
 
 @pytest.mark.parametrize("m", [1, 2, 3, 6])
@@ -65,13 +70,21 @@ def test_rhs_kernel_matches_plain(cuda, m, B, n, b):
 
 
 def test_kernels_at_main_path_shape(cuda):
-    """B = 256 scenarios, 2N = 128, m = 2, b = 8, at the CNOT3 step size."""
+    """B = 256 scenarios, 2N = 128, m = 2, b = 8, at the CNOT3 step size;
+    the pair kernel launched once per call, its L the LHS kernel's output
+    bit for bit (the odd levels enter with their sign flipped exactly)."""
     A, W = _inputs(3, 256, 2, 128, 8, cuda, scale=1.0)
     dt = torch.tensor(0.55, dtype=torch.float32, device=cuda)
-    assert _rel_err(qt.ops.hermite_lhs_matrix_kernel_call(A, dt, 2),
-                    sk.lhs_matrix_plain(A, dt, 2)) <= REL_TOL
+    lhs = qt.ops.hermite_lhs_matrix_kernel_call(A, dt, 2)
+    assert _rel_err(lhs, sk.lhs_matrix_plain(A, dt, 2)) <= REL_TOL
     assert _rel_err(qt.ops.hermite_rhs_kernel_call(A, W, dt, 2),
                     sk.rhs_plain(A, W, dt, 2)) <= REL_TOL
+    sk.reset_launch_counts()
+    R, L = qt.ops.hermite_stage_pair_kernel_call(A, dt, 2)
+    assert sk.launch_counts()["hermite_stage_pair"] == 1
+    for x, ref in zip((R, L), sk.stage_pair_plain(A, dt, 2)):
+        assert _rel_err(x, ref) <= REL_TOL
+    assert torch.equal(L, lhs)
 
 
 def test_kernel_backward_is_plain_vjp(cuda):
@@ -130,8 +143,11 @@ def test_main_path_wrappers_issue_one_device_kernel(cuda):
     lhs = _device_kernels(
         lambda: qt.ops.hermite_lhs_matrix_kernel_call(A, dt, 2))
     rhs = _device_kernels(lambda: qt.ops.hermite_rhs_kernel_call(A, W, dt, 2))
+    pair = _device_kernels(
+        lambda: qt.ops.hermite_stage_pair_kernel_call(A, dt, 2))
     assert len(lhs) == 1 and "lhs_staged_kernel" in lhs[0], lhs
     assert len(rhs) == 1 and "rhs_stream_kernel" in rhs[0], rhs
+    assert len(pair) == 1 and "lhs_staged_kernel" in pair[0], pair
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -179,14 +195,17 @@ def test_rhs_kernel_at_wide_shapes(cuda):
 def test_lhs_level_kernel_at_large_and_order8_shapes(cuda):
     """The LHS level kernel at 2N = 1024 (B = 1: 128 x 64 tiles; B = 20:
     128 x 128) and at order 8 on the main path's width (the staged launch,
-    then levels 2 and 3)."""
+    then levels 2 and 3); the pair variant at the same shapes."""
     dt = torch.tensor(0.1, dtype=torch.float32, device=cuda)
     for B, m, n in [(1, 2, 1024), (20, 2, 1024), (256, 4, 128)]:
         A, _ = _scaled_inputs(40 + B, B, m, n, 8, cuda)
         out = qt.ops.hermite_lhs_matrix_kernel_call(A, dt, m)
+        pair = qt.ops.hermite_stage_pair_kernel_call(A, dt, m)
         torch.cuda.synchronize()
         assert _rel_err(out, sk.lhs_matrix_plain(A, dt, m)) <= REL_TOL, (B,
                                                                          m, n)
+        for x, ref in zip(pair, sk.stage_pair_plain(A, dt, m)):
+            assert _rel_err(x, ref) <= REL_TOL, (B, m, n)
 
 
 def test_large_dense_route_on_the_card(cuda):
@@ -227,15 +246,24 @@ def test_launch_counters_count_kernel_launches(cuda):
     qt.ops.hermite_lhs_matrix_kernel_call(A, 0.1, 2, sign=1.0)
     qt.ops.hermite_rhs_kernel_call(A, W, 0.1, 2)
     qt.ops.hermite_rhs_kernel_call(A, W, 0.1, 2)
+    qt.ops.hermite_stage_pair_kernel_call(A, 0.1, 2)
     sk.lhs_matrix_plain(A, 0.1, 2)
-    assert sk.launch_counts() == {"hermite_lhs_matrix": 2, "hermite_rhs": 2}
+    sk.stage_pair_plain(A, 0.1, 2)
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 2, "hermite_rhs": 2,
+                                  "hermite_stage_pair": 1}
     assert sk.lhs_launches_by_sign() == {"-1": 1, "+1": 1}
 
 
-def test_slice_kernel_route_matches_plain_route(cuda):
+def test_slice_kernel_route_matches_plain_route(cuda, monkeypatch):
     """CNOT3 at full width, 8 steps, 2 scenarios, f32: the kernel route
-    against the plain route on the card, and both wrappers launched once
-    per forward step."""
+    against the plain route on the card, the LHS and RHS wrappers launched
+    once per forward step, the pair once per backward step. The step loops
+    run in blocks of 4 steps (the block target set to 4): a call captures
+    both block programs, a later call with the same SegmentGraphs replays
+    them, bit for bit (the replays counted into the launches)."""
+    from qgd_tpu_torch import segmented
+
+    monkeypatch.setattr(segmented, "_BLOCK_STEPS", 4)
     prob = qt.cnot3_problem(tf=4.4, nsteps=8, solver="schulz",
                             dtype="float32", schulz_iters=48,
                             schulz_warm_budget=0, device=cuda)
@@ -243,16 +271,37 @@ def test_slice_kernel_route_matches_plain_route(cuda):
     pcof = np.random.default_rng(0).standard_normal((2, 60)) * 0.01
     rng = np.random.default_rng(1)
     tgt = rng.standard_normal((64, 8)) + 1j * rng.standard_normal((64, 8))
+    per_call = {"hermite_lhs_matrix": 8, "hermite_rhs": 8,
+                "hermite_stage_pair": 8}
+    graphs = qt.SegmentGraphs()
+    calls = []
+    for _ in range(2):
+        sk.reset_launch_counts()
+        calls.append(qt.segmented_objective_and_gradient(
+            prob, ctrls, pcof, tgt, 4, graphs=graphs))
+        assert sk.launch_counts() == per_call
+    assert graphs.stats()["graphs"] == 2
+    assert graphs.stats()["replays"] == {"fwd": 3, "bwd": 3}
+    _replay_matches_capture(*calls)
+    (j1_k, g_k, _), grad_k = calls[0]
     sk.reset_launch_counts()
-    (j1_k, g_k, _), grad_k = qt.segmented_objective_and_gradient(
-        prob, ctrls, pcof, tgt, 4)
-    assert sk.launch_counts() == {"hermite_lhs_matrix": 8, "hermite_rhs": 8}
     (j1_p, g_p, _), grad_p = qt.segmented_objective_and_gradient(
         prob, ctrls, pcof, tgt, 4, use_kernels=False)
-    assert sk.launch_counts() == {"hermite_lhs_matrix": 8, "hermite_rhs": 8}
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 0, "hermite_rhs": 0,
+                                  "hermite_stage_pair": 0}
     assert float((j1_k - j1_p).abs().max()) <= 1e-5
     assert float((g_k - g_p).abs().max()) <= 1e-5
     assert float((grad_k - grad_p).norm() / grad_p.norm()) <= 1e-4
+
+
+def _replay_matches_capture(first, later):
+    """The call that captured a route's programs and a later call that
+    replays them: the objective bit for bit, the gradient equal or within
+    1e-15 relative."""
+    (j1, g, _), grad = first
+    (rj1, rg, _), rgrad = later
+    assert torch.equal(j1, rj1) and torch.equal(g, rg)
+    assert float((grad - rgrad).norm() / grad.norm()) <= 1e-15
 
 
 @pytest.mark.parametrize("B", [1, 1000, 5500])
@@ -294,7 +343,9 @@ def test_plain_route_on_the_card_matches_cpu_f64(cuda):
                             device=cuda)
     sk.reset_launch_counts()
     (j1, g, _), grad = qt.objective_and_gradient(prob, ctrls, pcof, tgt, 4)
-    assert sk.launch_counts() == {"hermite_lhs_matrix": 1, "hermite_rhs": 8}
+    # the adjoint's pairs at the 7 interior points, hoisted: one launch
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 1, "hermite_rhs": 8,
+                                  "hermite_stage_pair": 1}
     ref = qt.cnot3_problem(tf=4.4, nsteps=8, device="cpu")
     (rj1, rg, _), rgrad = qt.objective_and_gradient(ref, ctrls, pcof, tgt, 4)
     assert float(((j1 + g).cpu() - (rj1 + rg)).abs().max()) <= 1e-4
@@ -305,12 +356,17 @@ def test_plain_route_on_the_card_matches_cpu_f64(cuda):
 def test_lhs_kernel_at_segment_and_prefix_batches(cuda, B, sign):
     """One segment's hoisted build: L = 40 for 256 scenarios (B = 10240,
     about 1.3 GB of stack in); the prefix route's R (sign +1) and M
-    (sign -1) at L = 275, one wave and 11 blocks past it."""
+    (sign -1) at L = 275, one wave and 11 blocks past it; the backward's
+    pair at the same batches."""
     A, _ = _inputs(22, B, 2, 128, 8, cuda, scale=1.0)
     dt = torch.tensor(0.1, dtype=torch.float32, device=cuda)
     out = qt.ops.hermite_lhs_matrix_kernel_call(A, dt, 2, sign)
     torch.cuda.synchronize()
     assert _rel_err(out, sk.lhs_matrix_plain(A, dt, 2, sign)) <= REL_TOL
+    if sign == -1.0:
+        for x, ref in zip(qt.ops.hermite_stage_pair_kernel_call(A, dt, 2),
+                          sk.stage_pair_plain(A, dt, 2)):
+            assert _rel_err(x, ref) <= REL_TOL
     last = qt.ops.hermite_lhs_matrix_kernel_call(A[-1:].contiguous(), dt, 2,
                                                  sign)
     assert torch.equal(out[-1:], last)
@@ -331,12 +387,22 @@ def test_general_segment_length_on_the_card(cuda):
     """CNOT3, 24 steps in 3 segments of 8, 3 scenarios, f32: the kernel
     route against the plain route and against L = 1; the LHS kernel once
     per segment in the forward and once in the re-forward, the RHS kernel
-    once per step in each."""
+    once per step in each, the pair kernel once per segment. At 80 steps
+    in 2 segments of L = 40, a call that replays the captured segment
+    programs against the call that captured them, bit for bit."""
     prob, ctrls, pcof, tgt = _cnot3_slice(cuda, 24)
     sk.reset_launch_counts()
     (j1, g, _), grad = qt.segmented_objective_and_gradient(
         prob, ctrls, pcof, tgt, 4, n_segments=3)
-    assert sk.launch_counts() == {"hermite_lhs_matrix": 6, "hermite_rhs": 48}
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 6, "hermite_rhs": 48,
+                                  "hermite_stage_pair": 3}
+    prob80, ctrls80, pcof80, tgt80 = _cnot3_slice(cuda, 80)
+    graphs = qt.SegmentGraphs()
+    calls = [qt.segmented_objective_and_gradient(
+        prob80, ctrls80, pcof80, tgt80, 4, n_segments=2, graphs=graphs)
+        for _ in range(2)]
+    assert graphs.stats()["replays"] == {"fwd": 3, "bwd": 3}
+    _replay_matches_capture(*calls)
     for kw in (dict(n_segments=3, use_kernels=False), dict(n_segments=24)):
         (rj1, rg, _), rgrad = qt.segmented_objective_and_gradient(
             prob, ctrls, pcof, tgt, 4, **kw)
@@ -351,7 +417,8 @@ def test_prefix_route_on_the_card(cuda):
     sk.reset_launch_counts()
     (j1, g, _), grad = qt.prefix_objective_and_gradient(
         prob, ctrls, pcof, tgt, 4, n_segments=2)
-    assert sk.launch_counts() == {"hermite_lhs_matrix": 6, "hermite_rhs": 0}
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 6, "hermite_rhs": 0,
+                                  "hermite_stage_pair": 2}
     assert sk.lhs_launches_by_sign() == {"-1": 4, "+1": 2}
     (pj1, pg, _), pgrad = qt.prefix_objective_and_gradient(
         prob, ctrls, pcof, tgt, 4, n_segments=2, use_kernels=False)
@@ -503,7 +570,8 @@ def test_chunked_route_replays_graphs(cuda):
             prob, ctrls, pcof[0], tgt, 4, max_dispatch_steps=16,
             graphs=graphs, **kw)
         assert sk.launch_counts() == {"hermite_lhs_matrix": 12,
-                                      "hermite_rhs": 96}
+                                      "hermite_rhs": 96,
+                                      "hermite_stage_pair": 6}
     stats = graphs.stats()
     assert stats["graphs"] == 2 and stats["replays"] == {"fwd": 11, "bwd": 11}
     (sj1, sg, sr), sgrad = qt.segmented_objective_and_gradient(

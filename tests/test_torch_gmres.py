@@ -259,7 +259,8 @@ def test_f32_gmres_on_the_cpu_launches_nothing(rand_case):
     h32 = qt.eval_forward(dataclasses.replace(gp, dtype="float32"), ctrl,
                           pcof, 4)
     assert h32.dtype == torch.float32
-    assert sk.launch_counts() == {"hermite_lhs_matrix": 0, "hermite_rhs": 0}
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 0, "hermite_rhs": 0,
+                                  "hermite_stage_pair": 0}
     assert sk.rhs_launches_by_sign() == {"-1": 0, "+1": 0}
     h64 = qt.eval_forward(gp, ctrl, pcof, 4)
     assert float((h32.double() - h64).abs().max()) <= 1e-5

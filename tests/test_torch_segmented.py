@@ -31,6 +31,7 @@ from qgd_tpu.forward import eval_forward as j_eval_forward  # noqa: E402
 from qgd_tpu.segmented import choose_segments as j_choose  # noqa: E402
 from qgd_tpu.segmented import segmented_objective_and_gradient as j_seg  # noqa
 import qgd_tpu_torch as qt  # noqa: E402
+from qgd_tpu_torch import segmented as seg  # noqa: E402
 from qgd_tpu_torch.segmented import _auto_segments  # noqa: E402
 
 torch.set_num_threads(1)
@@ -66,36 +67,52 @@ def _rel(a, b):
     ("float64", 1e-11, 1e-11),
     ("float32", 1e-5, 1e-4),
 ])
-def test_cnot3_l1_slice_matches_jax(dtype, tol_obj, tol_grad):
+def test_cnot3_l1_slice_matches_jax(dtype, tol_obj, tol_grad, monkeypatch):
+    """L = 1 runs blocks of K steps (``_block_length``): one block of 8
+    here, and, with the block target at 2, four blocks of 2 through the
+    same programs, each block's state and multiplier handed on."""
     pcof, tgt = _inputs()
     jprob, jc, tprob, tc = _problems(dtype)
-    (j1, guard, ridge), grad = qt.segmented_objective_and_gradient(
-        tprob, tc, pcof, tgt, 4, ridge_penalty_strength=1e-3,
-        refine_sweeps=jl.REFINE_SWEEPS_F32)
+    runs = []
+    for block in (seg._BLOCK_STEPS, 2):
+        monkeypatch.setattr(seg, "_BLOCK_STEPS", block)
+        runs.append(qt.segmented_objective_and_gradient(
+            tprob, tc, pcof, tgt, 4, ridge_penalty_strength=1e-3,
+            refine_sweeps=jl.REFINE_SWEEPS_F32))
+    assert seg._block_length(NSTEPS) == 2
+    (j1, guard, ridge), grad = runs[0]
     assert grad.shape == (S, 60) and grad.dtype == torch.float64
     assert j1.shape == guard.shape == ridge.shape == (S,)
     for s in range(S):
         (jj1, jg, jr), jgrad = j_seg(jprob, jc, jnp.asarray(pcof[s]), tgt, 4,
                                      ridge_penalty_strength=1e-3,
                                      n_segments=NSTEPS)
-        assert _rel(j1[s], jj1) <= tol_obj
-        assert _rel(guard[s], jg) <= tol_obj
-        assert _rel(ridge[s], jr) <= 1e-14
-        assert _rel(grad[s], jgrad) <= tol_grad
+        for (j1, guard, ridge), grad in runs:
+            assert _rel(j1[s], jj1) <= tol_obj
+            assert _rel(guard[s], jg) <= tol_obj
+            assert _rel(ridge[s], jr) <= 1e-14
+            assert _rel(grad[s], jgrad) <= tol_grad
 
 
 def test_single_control_vector_and_auto_segments():
     """A 1-D pcof gives scalars; n_segments = 0 on the CPU takes the
-    sqrt-length rule, as in JAX (nsteps = 8: 4 segments of 2 steps)."""
+    sqrt-length rule, as in JAX (nsteps = 8: 4 segments of 2 steps). A
+    ``SegmentGraphs`` kept across the calls serves both from one set of
+    segment programs, and the value-only call from its forward."""
     pcof, tgt = _inputs()
     _, _, tprob, tc = _problems("float64")
     assert _auto_segments(tprob, NSTEPS, S) == j_choose(NSTEPS) == 4
+    graphs = qt.SegmentGraphs()
     (j1b, gb, _), gradb = qt.segmented_objective_and_gradient(
-        tprob, tc, pcof[:1], tgt, 4, n_segments=4)
+        tprob, tc, pcof[:1], tgt, 4, n_segments=4, graphs=graphs)
     (j1, g, _), grad = qt.segmented_objective_and_gradient(
-        tprob, tc, pcof[0], tgt, 4)
+        tprob, tc, pcof[0], tgt, 4, graphs=graphs)
+    val = qt.segmented_objective_value(tprob, tc, pcof[0], tgt, 4,
+                                       graphs=graphs)
+    assert len(graphs._programs) == 1
     assert j1.dim() == 0 and grad.shape == (60,)
     assert float(j1) == float(j1b[0]) and float(g) == float(gb[0])
+    assert float(val) == float(j1 + g)
     assert torch.equal(grad, gradb[0])
 
 

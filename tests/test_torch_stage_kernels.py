@@ -1,13 +1,16 @@
 """Plain versions and autograd Functions of the qgd_tpu_torch stage
 kernels against the Pallas kernels of qgd_tpu (interpret mode, f32, the
 tolerance of tests/test_pallas.py) and against the JAX Hermite definition
-in f64. The CUDA kernels themselves are checked on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+in f64; the pair build against ``qgd_tpu.forward._stage_matrices_both``
+(f64 at 1e-13, f32 against JAX's f64 at 1e-5 relative). The CUDA kernels
+themselves are checked on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 
 import numpy as np
 import pytest
 
 pytest.importorskip("jax")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
@@ -47,8 +50,54 @@ def test_lhs_plain_matches_pallas_interpret(m):
     np.testing.assert_allclose(out.numpy(), ref, rtol=2e-6, atol=2e-6)
 
 
+def _pair_matches_jax_stage_matrices_both():
+    """``stage_pair_plain`` and the port's ``_stage_matrices_both`` (the
+    kernel route, which takes the plain version on the CPU, and the plain
+    route; f64 and f32) against the JAX package's ``_stage_matrices_both``
+    in f64, at m = 1..4, on a qubit in the rotating frame at 2N = 8 and at
+    the ragged 2N = 10, control tables from a seed."""
+    import dataclasses
+
+    import qgd_tpu
+    import qgd_tpu_torch as qt
+    from qgd_tpu.forward import _stage_matrices_both as j_both
+    from qgd_tpu_torch.forward import _stage_matrices_both as t_both
+
+    rng = np.random.default_rng(40)
+    for ess in (2, 3):                       # 2N = 8, 10
+        jprob = qgd_tpu.rotating_frame_qubit(ess, 2, tf=1.0, nsteps=8)
+        tprob = qt.rotating_frame_qubit(ess, 2, tf=1.0, nsteps=8,
+                                        device="cpu")
+        for m in (1, 2, 3, 4):
+            P = rng.standard_normal((3, m, tprob.N_operators)) * 0.3
+            Q = rng.standard_normal((3, m, tprob.N_operators)) * 0.3
+            # one compile of the vmapped build rather than op by op
+            R_j, L_j = (np.asarray(x) for x in jax.jit(
+                lambda p_, q_: j_both(jprob, m, 0.55, p_, q_))(
+                    jnp.asarray(P), jnp.asarray(Q)))
+            for dtype, tol in ((torch.float64, 1e-13),
+                               (torch.float32, 1e-5)):
+                wprob = qt.working_problem(dataclasses.replace(
+                    tprob, dtype=str(dtype).split(".")[1]))
+                Pt = torch.tensor(P, dtype=dtype)
+                Qt = torch.tensor(Q, dtype=dtype)
+                dt = torch.tensor(0.55, dtype=dtype)
+                A = qt.assemble_generator_stack(wprob, Pt, Qt, m)
+                outs = [sk.stage_pair_plain(A, dt, m)]
+                outs += [t_both(wprob, m, dt, Pt, Qt, use_kernels=u)
+                         for u in (True, False)]
+                for R, L in outs:
+                    assert R.dtype == L.dtype == dtype
+                    for x, ref in ((R, R_j), (L, L_j)):
+                        err = np.abs(x.double().numpy() - ref).max()
+                        assert err <= tol * np.abs(ref).max(), (ess, m,
+                                                                dtype, err)
+
+
 @pytest.mark.parametrize("m", [1, 2, 3, 6])
 def test_plain_versions_match_hermite_definition_f64(m):
+    if m == 1:
+        _pair_matches_jax_stage_matrices_both()
     A, W = _inputs(2, 3, m, 16, 4, dtype=np.float64)
     dt = 0.37
     lhs = sk.lhs_matrix_plain(torch.tensor(A), dt, m).numpy()
@@ -79,6 +128,13 @@ def test_autograd_functions_gradcheck_f64(fn):
             lambda a_, d_: sk.HermiteLHSMatrix.apply(a_, d_, 2, -1.0), (a, d))
         assert torch.autograd.gradcheck(
             lambda a_: sk.HermiteLHSMatrix.apply(a_, 0.3, 2, 1.0), (a,))
+        # the pair's Function: both outputs, dt a tensor or a number
+        assert torch.autograd.gradcheck(
+            lambda a_, d_: sk.HermiteStagePair.apply(a_, d_, 2), (a, d))
+        assert torch.autograd.gradcheck(
+            lambda a_: sk.HermiteStagePair.apply(a_, 0.3, 3),
+            (torch.tensor(_inputs(6, 2, 3, 5, 3, dtype=np.float64)[0],
+                          requires_grad=True),))
     else:
         assert torch.autograd.gradcheck(
             lambda a_, w_, d_: sk.HermiteRHS.apply(a_, w_, d_, 2),
@@ -97,12 +153,17 @@ def test_cpu_tensors_take_plain_version_and_launch_nothing():
                        sk.rhs_plain(a, w, 0.1, 2))
     assert torch.equal(sk.hermite_lhs_matrix_kernel_call(a, 0.1, 2, 1.0),
                        sk.lhs_matrix_plain(a, 0.1, 2, 1.0))
-    assert sk.launch_counts() == {"hermite_lhs_matrix": 0, "hermite_rhs": 0}
+    for x, y in zip(sk.hermite_stage_pair_kernel_call(a, 0.1, 2),
+                    sk.stage_pair_plain(a, 0.1, 2)):
+        assert torch.equal(x, y)
+    assert sk.launch_counts() == {"hermite_lhs_matrix": 0, "hermite_rhs": 0,
+                                  "hermite_stage_pair": 0}
     assert sk.lhs_launches_by_sign() == {"-1": 0, "+1": 0}
     with pytest.raises(ValueError):
         sk.hermite_lhs_matrix_kernel_call(a, 0.1, 2, 0.5)
-    with pytest.raises(ValueError):
-        sk._launch_lhs(a, 0.1, 2, -1.0)
+    for pair in (False, True):
+        with pytest.raises(ValueError):
+            sk._launch_stage(a, 0.1, 2, -1.0, pair)
     with pytest.raises(ValueError):
         sk._launch_rhs(a, w, 0.1, 2)
 
