@@ -12,8 +12,10 @@ columns, order 4, three BSpline2Control(10) pulses = 60 parameters,
 nsteps = 1000, tf = 550), solver="schulz" with warm budget 0 and 3 f32
 refinement sweeps, segment length 1, f32 propagation with f64 reductions,
 for 256 control-vector scenarios: per step the LHS and RHS kernels in the
-forward and the pair kernel (the backward's R and L from one recursion)
-in the backward, the step loops in blocks of 100 steps, each block
+forward and the pair kernel (the backward's R and L from one recursion;
+at m = 2 its product on the tensor cores in split TF32, the kernels phase
+holding it against the float64 pair beside the LHS kernel's error) in
+the backward, the step loops in blocks of 100 steps, each block
 program captured once as a CUDA graph and replayed. The main phase keeps
 one SegmentGraphs across four calls (the first captures, the second runs
 under CUDA's sync debug mode), holds every replayed call bit for bit to
@@ -109,9 +111,17 @@ F64_OBJ_TOL, F64_GRAD_TOL = 1e-4, 1e-3
 # A broken stage solve sits at 1e-2 or worse.
 RESIDUAL_LIMIT = 1e-6
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): FP32
-# outside the tensor cores, and HBM3. The kernels run in plain FP32 FMA.
+# outside the tensor cores, dense TF32 on them, and HBM3. The LHS and RHS
+# kernels run in plain FP32 FMA; the pair kernel at m = 2 does its product
+# as three TF32 passes (split TF32), whose time at the TF32 peak its rows
+# give beside the bound.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+# The pair kernel's precision on the main path's stack: its error against
+# the float64 pair over max |ref| at most PAIR_F64_RATIO times the LHS
+# kernel's on L (plain FP32 FMA, the same inputs) and at most PAIR_F64_TOL.
+PAIR_F64_RATIO, PAIR_F64_TOL = 2.0, 1e-6
 # A buffer larger than the 50 MB L2, written between launches to time a
 # kernel with its operands cold.
 FLUSH_BYTES = 128 * 2 ** 20
@@ -422,6 +432,7 @@ def kernel_phase(prob, controls, pcof, dev, smi):
     phase("kernels", "autograd backward on CUDA vs plain VJP <= 1e-4")
 
     A, W, dt = _main_path_stacks(prob, controls, pcof, dev)
+    _pair_precision(A, dt, smi)
     # the main path's shapes: both forward kernels at B = 256 and the
     # backward's pair at the same batch (one launch per backward step)
     rows = _kernel_rows(A, W, dt, dev, smi, "main", pair=True)
@@ -511,6 +522,40 @@ def kernel_phase(prob, controls, pcof, dev, smi):
                          "sharded", lhs=False, pair=True,
                          pair_tag=f"B={NSTEPS - 1}")
     return rows
+
+
+def _pair_precision(A, dt, smi):
+    """The split-TF32 pair kernel against the float64 pair on the main
+    path's stack, beside the LHS kernel (FP32 FMA) on L; fails unless the
+    pair's error is within PAIR_F64_RATIO times the LHS kernel's and
+    PAIR_F64_TOL."""
+    from qgd_tpu_torch.ops import stage_kernels as sk
+
+    R, L = sk.hermite_stage_pair_kernel_call(A, dt, 2)
+    lhs = sk.hermite_lhs_matrix_kernel_call(A, dt, 2)
+    R64, L64 = sk.stage_pair_plain(A.double(), dt.double(), 2)
+    pair_abs, pair_err = _errs((R.double(), L.double()), (R64, L64))
+    lhs_abs, lhs_err = _errs(lhs.double(), L64)
+    plain = tuple(x.double() for x in sk.stage_pair_plain(A, dt, 2))
+    plain_err = _errs(plain, (R64, L64))[1]
+    phase("kernels", f"pair precision on the main path's stack (B = "
+                     f"{A.shape[0]}, CNOT3 step 500 of {NSTEPS}): split-TF32 "
+                     f"pair kernel vs the float64 pair max|err| {pair_abs:.3e}"
+                     f" ({pair_err:.3e} of max|ref|, R and L); LHS kernel "
+                     f"(FP32 FMA) on L {lhs_abs:.3e} ({lhs_err:.3e}); ratio "
+                     f"{pair_err / lhs_err:.3f} (limit {PAIR_F64_RATIO:g}, "
+                     f"and <= {PAIR_F64_TOL:g}); the plain f32 pair (cuBLAS "
+                     f"FP32) {plain_err:.3e}; {smi}")
+    check(pair_err <= PAIR_F64_RATIO * lhs_err and pair_err <= PAIR_F64_TOL,
+          f"pair vs float64 {pair_err:.3e}, LHS kernel {lhs_err:.3e}")
+
+
+def _short_kernel(name):
+    """A profiler kernel name without return type, namespaces and
+    arguments: ``stage_pair_tf32_kernel<64, true>``."""
+    head = name.replace("(anonymous namespace)::", "").split("(", 1)[0]
+    base, lt, args = head.strip().removeprefix("void ").partition("<")
+    return base.rsplit("::", 1)[-1] + lt + args
 
 
 def wide_phase(dev, smi):
@@ -802,6 +847,18 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
                "library_ms": library_ms, "cold_ms": cold_ms,
                "device_launches": None if kernels is None else len(kernels),
                "eager_ms": eager[1], "host_us": host_us}
+        tf32_note = ""
+        if kernels is not None:
+            row["kernel"] = ", ".join(_short_kernel(k) for k in kernels)
+            if "stage_pair_tf32_kernel" in row["kernel"]:
+                # pair.cu launched csrc/pair_tf32.cuh: three TF32 passes
+                # per product on the tensor cores; the bound stays the
+                # function's own work (FP32 products, HBM bytes)
+                row["source"] = "qgd_tpu_torch/csrc/pair_tf32.cuh"
+                tf32_ms = 3 * work[name][0] / PEAK_TF32_FLOPS * 1e3
+                tf32_note = (f"; its 3 TF32 passes {tf32_ms:.4f} ms at "
+                             f"{PEAK_TF32_FLOPS / 1e12:g} TFLOP/s, beside "
+                             f"the bound")
         if lib is None:
             row["library_note"] = ("no single PyTorch call: W2 depends on "
                                    "W1, two dependent products")
@@ -846,8 +903,9 @@ def _kernel_rows(A, W, dt, dev, smi, driven_by, tag=None, sign=-1.0,
                          f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB "
                          f"at {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s, "
                          f"{PEAK_HBM_BYTES_PER_S / 1e12:g} TB/s), share "
-                         f"{bound_ms / ms:.3f}{warm}; eager call with host "
-                         f"launch (median of 20): kernel {eager[1]:.4f} ms, "
+                         f"{bound_ms / ms:.3f}{warm}{tf32_note}; eager call "
+                         f"with host launch (median of 20): kernel "
+                         f"{eager[1]:.4f} ms, "
                          f"plain {eager[0]:.4f} ms; host time per call "
                          f"{host_us:.1f} us; device activities per call "
                          f"{row['device_launches']}: {kernels}; {smi}")

@@ -24,7 +24,8 @@ batched as a leading tensor dimension. The two Pallas kernels of
 ``qgd_tpu/ops/pallas_step.py`` are hand-written CUDA kernels here
 (``csrc/lhs.cuh``, ``csrc/rhs.cu``, wrapped in ``ops/stage_kernels.py``),
 the LHS one also in the variant that builds the adjoint's pair of
-one-step matrices (``csrc/pair.cu``),
+one-step matrices (``csrc/pair.cu``; at order 4 a split-TF32 tensor-core
+kernel, ``csrc/pair_tf32.cuh``),
 built with ``nvcc`` at first use on a CUDA tensor. Problems are built on
 the card unless the caller passes ``device="cpu"``.
 

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("lhs.cu", "pair.cu", "rhs.cu")
-HEADERS = ("stage_common.cuh", "lhs.cuh")
+HEADERS = ("stage_common.cuh", "lhs.cuh", "pair_tf32.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")

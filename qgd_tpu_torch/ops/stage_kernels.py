@@ -18,11 +18,13 @@ Hopper (``csrc/lhs.cuh`` behind ``csrc/lhs.cu`` and ``csrc/pair.cu``,
 * :func:`hermite_stage_pair_kernel_call`, the backward's pair ``(R, L)``
   of one-step matrices ``sum_j dt^j c_j D_j`` and ``sum_j (-dt)^j c_j
   D_j`` from one identity recursion: the counterpart of the JAX package's
-  XLA function ``qgd_tpu/forward.py:158`` (``_stage_matrices_both``), a
-  variant of the LHS kernels (``hermite_stage_pair_f32``,
-  ``csrc/pair.cu``) that shares every product and writes both sums. At
-  the main-path shape it does the LHS kernel's FMAs and moves one more
-  16.8 MB output: HBM bytes bound it.
+  XLA function ``qgd_tpu/forward.py:158`` (``_stage_matrices_both``)
+  (``hermite_stage_pair_f32``, ``csrc/pair.cu``). At m = 2 with n <= 128
+  (the main path) one launch of ``csrc/pair_tf32.cuh`` does the product
+  on the tensor cores in split TF32 (three TF32 passes that keep float32
+  accuracy), 64 x 64 output tiles spread over blocks, and writes both
+  sums: HBM bytes bound it. Other shapes take a variant of the LHS
+  kernels that shares every product and writes both sums.
 * :func:`hermite_rhs_kernel_call` replaces the Pallas kernel
   ``qgd_tpu/ops/pallas_step.py:91`` (``hermite_rhs_kernel_call``):
   ``A_stack (B, m, n, n)``, ``W (B, n, b)``, scalar ``dt`` -> ``(B, n, b)``

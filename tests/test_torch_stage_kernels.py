@@ -94,10 +94,62 @@ def _pair_matches_jax_stage_matrices_both():
                                                                 dtype, err)
 
 
+def _tf32(x, nearest=True):
+    """float32 -> TF32 (10 mantissa bits) by mantissa rounding, to nearest
+    with ties away from zero or toward zero, as the pair kernel cuts its
+    operands' hi and lo parts."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
+    if nearest:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32_pair_matches_f64():
+    """The pair kernel's arithmetic at m = 2, emulated in float32: the
+    scaled At_0 split into hi = tf32(x) (to nearest) and lo = x - hi (cut
+    toward zero), the product as hi·hi + hi·lo + lo·hi, then the kernel's
+    epilogue. On CNOT3 stacks
+    at the main path's dt (4 seeded scenarios, step 500 of 1000) it holds
+    to the float64 ``stage_pair_plain`` within 1e-6 of max |ref|, the card
+    check's bound; one TF32 pass (hi·hi) misses it."""
+    import qgd_tpu_torch as qt
+    from qgd_tpu_torch.forward import _time_grid
+
+    prob = qt.cnot3_problem(nsteps=1000, solver="schulz", dtype="float32",
+                            schulz_warm_budget=0, device="cpu")
+    ctrls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
+    pcof = torch.tensor(
+        np.random.default_rng(0).standard_normal((4, 60)) * 0.01)
+    _, ts = _time_grid(prob)
+    P, Q = qt.control_tables(ctrls, pcof, ts[500:501], 2)
+    A = qt.assemble_generator_stack(qt.working_problem(prob),
+                                    P[:, 0].float(), Q[:, 0].float(),
+                                    2).numpy()
+    s = np.float32(prob.tf / prob.nsteps)
+    c = [np.float32(x) for x in qt.hermite_coefficients(2)]
+    a0, a1 = A[:, 0] * s, A[:, 1] * (s * s)
+    hi = _tf32(a0)
+    lo = _tf32(a0 - hi, nearest=False)
+    eye = np.eye(A.shape[-1], dtype=np.float32) * c[0]
+    refs = [x.numpy() for x in sk.stage_pair_plain(
+        torch.tensor(A, dtype=torch.float64), float(s), 2)]
+
+    def err(prod):
+        d2 = (a1 + prod) / np.float32(2)
+        pair = ((eye + c[1] * a0) + c[2] * d2, (eye - c[1] * a0) + c[2] * d2)
+        return max(np.abs(x - ref).max() / np.abs(ref).max()
+                   for x, ref in zip(pair, refs))
+
+    assert err(lo @ hi + hi @ lo + hi @ hi) <= 1e-6
+    assert err(hi @ hi) > 1e-5
+
+
 @pytest.mark.parametrize("m", [1, 2, 3, 6])
 def test_plain_versions_match_hermite_definition_f64(m):
     if m == 1:
         _pair_matches_jax_stage_matrices_both()
+    if m == 2:
+        _split_tf32_pair_matches_f64()
     A, W = _inputs(2, 3, m, 16, 4, dtype=np.float64)
     dt = 0.37
     lhs = sk.lhs_matrix_plain(torch.tensor(A), dt, m).numpy()
