@@ -24,10 +24,11 @@
 
 The forward-mode routes carry one tangent per parameter as a scenario
 batch of copies of ``pcof``, and the difference routes evaluate all their
-perturbed vectors as one scenario batch. Forward mode cannot pass the f32
-CUDA stage kernels (their ``autograd.Function``s have no forward rule, as
-JAX's ``custom_vjp`` refuses ``jacfwd``): those checks run on float64
-problems, on the card as on the CPU.
+perturbed vectors as one scenario batch. They run in either dtype: on an
+f32 problem on the card the primal of each stage build comes from its
+CUDA kernel and the tangent from the kernel ``autograd.Function``'s
+forward-mode rule (``ops.stage_kernels``). The plain route they take
+captures no CUDA graph, so every step runs eagerly.
 """
 
 from __future__ import annotations
@@ -70,16 +71,24 @@ from .problem import working_problem
 from .segmented import _no_graph, _table_cot, segmented_gradient
 
 
+def default_adjoint_method() -> str:
+    """The gradient route ``discrete_adjoint(method="auto")`` takes: the
+    hand-structured Lagrange adjoint (one forward history, one backward
+    sweep). ``"ad"``, autograd through the step loop, keeps every step's
+    intermediates and stays the independent cross-check."""
+    return "lagrange"
+
+
 def discrete_adjoint(prob, controls, pcof, target, order: int = 2,
                      cost_type: str = "Infidelity", method: str = "auto"):
     """Exact gradient of (terminal cost + guard penalty) with respect to
     ``pcof`` (the ridge gradient is the optimizer's). ``method``:
-    ``"lagrange"`` (the default, ``"auto"``), ``"ad"`` (autograd through
-    the forward step loop) or ``"segmented"`` (the segmented route, its
-    automatic segment count)."""
+    ``"lagrange"`` (the default, ``"auto"``: :func:`default_adjoint_method`),
+    ``"ad"`` (autograd through the forward step loop) or ``"segmented"``
+    (the segmented route, its automatic segment count)."""
     controls = as_control_tuple(controls)
     if method == "auto":
-        method = "lagrange"
+        method = default_adjoint_method()
     if method == "ad":
         pc, single = _scenario_pcof(prob, pcof)
         pc = pc.detach().requires_grad_(True)

@@ -57,6 +57,18 @@ def target_on_device(prob, target) -> torch.Tensor:
     return torch.as_tensor(host_realify_target(target), device=prob.device)
 
 
+def infidelity_of(prob, controls, pcof, target, order: int = 2,
+                  forcing=None):
+    """Forward solve, then the infidelity of its final state against
+    ``target`` (``src/infidelity.jl:33-47``): a float64 scalar, ``(S,)``
+    for ``pcof (S, N_params)``."""
+    from .forward import eval_forward
+
+    hist = eval_forward(prob, controls, pcof, order, forcing=forcing)
+    return infidelity_real(hist[..., -1, :, :].to(torch.float64),
+                           target_on_device(prob, target), prob.N_ess_levels)
+
+
 def ridge_penalty(pcof, strength: float):
     """``strength * ||pcof||^2 / N_params`` per control vector."""
     return strength * torch.sum(pcof * pcof, dim=-1) / pcof.shape[-1]

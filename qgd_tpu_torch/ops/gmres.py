@@ -37,7 +37,8 @@ from __future__ import annotations
 import torch
 
 from .hermite import build_lhs, scaled_derivatives
-from .stage_kernels import hermite_rhs_kernel_launch
+from .stage_kernels import (_derivatives_with_tangents, _weighted_tangent,
+                            hermite_rhs_kernel_launch)
 
 
 def _lstsq_min_norm(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -121,21 +122,6 @@ def stage_operator(A_stack: torch.Tensor, dt, m: int,
     return lambda v: build_lhs(scaled_derivatives(A_stack, v, m), dt, m)
 
 
-def _operator_tangent(A, dA, x, dt, m: int):
-    """Derivative of ``stage_operator(A)(x)`` along ``A``'s tangent
-    ``dA`` (the recursion differentiated level by level)."""
-    Vs, dVs = [x], [torch.zeros_like(x)]
-    for j in range(m):
-        acc, dacc = A[..., j, :, :] @ Vs[0], dA[..., j, :, :] @ Vs[0]
-        for i in range(1, j + 1):
-            acc = acc + A[..., j - i, :, :] @ Vs[i]
-            dacc = (dacc + dA[..., j - i, :, :] @ Vs[i]
-                    + A[..., j - i, :, :] @ dVs[i])
-        Vs.append(acc / (j + 1))
-        dVs.append(dacc / (j + 1))
-    return build_lhs(torch.stack(dVs, dim=-3), dt, m)
-
-
 class _GMRESStage(torch.autograd.Function):
     """``X = LHS(A)^{-1} B`` by GMRES (see :func:`hermite_gmres_stage`)."""
 
@@ -174,7 +160,10 @@ class _GMRESStage(torch.autograd.Function):
         A_stack, X = ctx.saved_tensors
         r = torch.zeros_like(X) if dB is None else dB
         if dA is not None:
-            r = r - _operator_tangent(A_stack, dA, X, ctx.dt, ctx.m)
+            # the operator's derivative along dA at X: the recursion
+            # differentiated level by level, step sign -1
+            Vs, dVs = _derivatives_with_tangents(A_stack, dA, X, None, ctx.m)
+            r = r - _weighted_tangent(Vs, dVs, -ctx.dt, None, ctx.m)
         pc = None if ctx.precond is None else ctx.precond[0]
         return gmres_solve(stage_operator(A_stack, ctx.dt, ctx.m,
                                           ctx.use_kernels),

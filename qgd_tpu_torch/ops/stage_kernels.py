@@ -50,7 +50,10 @@ launches the kernel through the ``autograd.Function`` or raises (f32
 only, contiguous, all operands on one device, a shape the kernels take).
 There is no fallback. The backward of each Function is the VJP of the
 plain version, as ``_lhs_kernel_call_bwd``/``_rhs_kernel_call_bwd`` are in
-JAX.
+JAX; its forward-mode rule (``jvp``) is the tangent of the plain version,
+the recursion differentiated level by level in the work dtype, beside the
+primal the kernel launch gave (JAX has no tangent kernel either: off the
+TPU its ``jacfwd`` runs the XLA definition).
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``: one
 per call that launches the kernel, added where it launches and nowhere
@@ -270,23 +273,72 @@ def _dt_input(ctx, dt_t, index: int):
     return dt_t.detach().requires_grad_(want), want
 
 
-def _no_forward_rule(*_):
-    raise NotImplementedError(
-        "forward-mode AD reached a CUDA stage kernel, which has no forward "
-        "rule (as JAX's custom_vjp refuses jacfwd): run forward-mode checks "
-        "(eval_grad_forced, eval_hessian(method='ad')) on a float64 problem")
+def _plus(acc, x):
+    return x if acc is None else acc + x
+
+
+def _derivatives_with_tangents(A, A_t, W0, W0_t, m: int):
+    """The scaled derivatives ``W_0 .. W_m`` of the recursion on ``W0``
+    (:func:`~.hermite.scaled_derivatives`, the same order of sums) and
+    their tangents along ``A_t`` and ``W0_t``, the recursion differentiated
+    level by level::
+
+        W'_{j+1} = 1/(j+1) sum_{i<=j} (A'_{j-i} W_i + A_{j-i} W'_i)
+
+    Two lists of ``m + 1`` tensors; a tangent that is zero (``A_t`` and
+    ``W0_t`` may be ``None``) is ``None``."""
+    Ws, Ts = [W0], [W0_t]
+    for j in range(m):
+        acc = tan = None
+        for i in range(j + 1):
+            acc = _plus(acc, A[..., j - i, :, :] @ Ws[i])
+            if A_t is not None:
+                tan = _plus(tan, A_t[..., j - i, :, :] @ Ws[i])
+            if Ts[i] is not None:
+                tan = _plus(tan, A[..., j - i, :, :] @ Ts[i])
+        Ws.append(acc / (j + 1))
+        Ts.append(None if tan is None else tan / (j + 1))
+    return Ws, Ts
+
+
+def _weighted_tangent(Ws, Ts, s, s_t, m: int):
+    """Tangent of ``sum_j s^j c_j W_j`` from :func:`_derivatives_with_tangents`
+    (``s``: the signed step, a number or 0-d tensor; ``s_t``: its tangent
+    or ``None``): ``sum_j c_j (s^j W'_j + j s^(j-1) s' W_j)``."""
+    c = hermite_coefficients(m)
+    out = Ts[0]                             # c_0 = 1
+    for j in range(1, m + 1):
+        if Ts[j] is not None:
+            out = _plus(out, (c[j] * s ** j) * Ts[j])
+        if s_t is not None:
+            out = _plus(out, (c[j] * j * s ** (j - 1) * s_t) * Ws[j])
+    return out
+
+
+def _step_with_tangent(ctx, dt_t, dt_tan, like: torch.Tensor, sign: float):
+    """``(sign*dt, its tangent or None)`` in ``like``'s dtype: a tensor
+    ``dt`` carries the caller's tangent, a number none."""
+    d = torch.as_tensor(ctx.dt_value if dt_t is None else dt_t,
+                        dtype=like.dtype, device=like.device)
+    s_t = None if dt_tan is None else sign * dt_tan.to(like.dtype)
+    return sign * d, s_t
+
+
+def _identity_recursion(A, A_t, m: int):
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return _derivatives_with_tangents(A, A_t, eye, None, m)
 
 
 class HermiteLHSMatrix(torch.autograd.Function):
     """Kernel forward on CUDA (plain forward on the CPU); backward is the
-    VJP of :func:`lhs_matrix_plain`; no forward-mode rule."""
-
-    jvp = staticmethod(_no_forward_rule)
+    VJP of :func:`lhs_matrix_plain`, forward mode its tangent."""
 
     @staticmethod
     def forward(ctx, A_stack, dt, m, sign):
         ctx.m, ctx.sign = m, sign
-        ctx.save_for_backward(A_stack, _save_dt(ctx, dt))
+        dt_t = _save_dt(ctx, dt)
+        ctx.save_for_backward(A_stack, dt_t)
+        ctx.save_for_forward(A_stack, dt_t)
         if A_stack.device.type == "cuda":
             return _launch_stage(A_stack, dt, m, sign)
         return lhs_matrix_plain(A_stack, dt, m, sign)
@@ -303,17 +355,24 @@ class HermiteLHSMatrix(torch.autograd.Function):
         ddt = grads[1].to(dt_t.dtype) if want_dt else None
         return grads[0].to(A_stack.dtype), ddt, None, None
 
+    @staticmethod
+    def jvp(ctx, A_tan, dt_tan, *_):
+        A_stack, dt_t = ctx.saved_tensors
+        s, s_t = _step_with_tangent(ctx, dt_t, dt_tan, A_stack, ctx.sign)
+        Ws, Ts = _identity_recursion(A_stack, A_tan, ctx.m)
+        return _weighted_tangent(Ws, Ts, s, s_t, ctx.m)
+
 
 class HermiteStagePair(torch.autograd.Function):
     """Pair-kernel forward on CUDA (plain forward on the CPU); backward
-    is the VJP of :func:`stage_pair_plain`; no forward-mode rule."""
-
-    jvp = staticmethod(_no_forward_rule)
+    is the VJP of :func:`stage_pair_plain`, forward mode its tangents."""
 
     @staticmethod
     def forward(ctx, A_stack, dt, m):
         ctx.m = m
-        ctx.save_for_backward(A_stack, _save_dt(ctx, dt))
+        dt_t = _save_dt(ctx, dt)
+        ctx.save_for_backward(A_stack, dt_t)
+        ctx.save_for_forward(A_stack, dt_t)
         if A_stack.device.type == "cuda":
             return _launch_stage(A_stack, dt, m, 1.0, pair=True)
         return stage_pair_plain(A_stack, dt, m)
@@ -331,17 +390,27 @@ class HermiteStagePair(torch.autograd.Function):
         ddt = grads[1].to(dt_t.dtype) if want_dt else None
         return grads[0].to(A_stack.dtype), ddt, None
 
+    @staticmethod
+    def jvp(ctx, A_tan, dt_tan, _):
+        A_stack, dt_t = ctx.saved_tensors
+        d, d_t = _step_with_tangent(ctx, dt_t, dt_tan, A_stack, 1.0)
+        Ws, Ts = _identity_recursion(A_stack, A_tan, ctx.m)
+        # R at step +dt, L at -dt, from one recursion
+        return (_weighted_tangent(Ws, Ts, d, d_t, ctx.m),
+                _weighted_tangent(Ws, Ts, -d, None if d_t is None else -d_t,
+                                  ctx.m))
+
 
 class HermiteRHS(torch.autograd.Function):
     """Kernel forward on CUDA (plain forward on the CPU); backward is the
-    VJP of :func:`rhs_plain`; no forward-mode rule."""
-
-    jvp = staticmethod(_no_forward_rule)
+    VJP of :func:`rhs_plain`, forward mode its tangent."""
 
     @staticmethod
     def forward(ctx, A_stack, W, dt, m, sign=1.0):
         ctx.m, ctx.sign = m, sign
-        ctx.save_for_backward(A_stack, W, _save_dt(ctx, dt))
+        dt_t = _save_dt(ctx, dt)
+        ctx.save_for_backward(A_stack, W, dt_t)
+        ctx.save_for_forward(A_stack, W, dt_t)
         if A_stack.device.type == "cuda":
             return _launch_rhs(A_stack, W, dt, m, sign)
         return rhs_plain(A_stack, W, dt, m, sign)
@@ -359,6 +428,13 @@ class HermiteRHS(torch.autograd.Function):
         ddt = grads[2].to(dt_t.dtype) if want_dt else None
         return (grads[0].to(A_stack.dtype), grads[1].to(W.dtype), ddt, None,
                 None)
+
+    @staticmethod
+    def jvp(ctx, A_tan, W_tan, dt_tan, *_):
+        A_stack, W, dt_t = ctx.saved_tensors
+        s, s_t = _step_with_tangent(ctx, dt_t, dt_tan, W, ctx.sign)
+        Ws, Ts = _derivatives_with_tangents(A_stack, A_tan, W, W_tan, ctx.m)
+        return _weighted_tangent(Ws, Ts, s, s_t, ctx.m)
 
 
 # --------------------------------------------------------------------------

@@ -24,6 +24,8 @@ import qgd_tpu  # noqa: E402
 from qgd_tpu import adjoint as ja, forward as jf, objective as jo  # noqa
 from qgd_tpu.segmented import segmented_objective_value as j_seg_value  # noqa
 import qgd_tpu_torch as qt  # noqa: E402
+from qgd_tpu_torch.adjoint import default_adjoint_method  # noqa: E402
+from qgd_tpu_torch.objective import infidelity_of  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -226,6 +228,10 @@ def test_objective_api_matches_jax():
     assert _rel(qt.infidelity_plus_guard(tprob, tc, pcof, tgt, 4),
                 jo.infidelity_plus_guard(jprob, jc, jnp.asarray(pcof), tgt,
                                          4)) <= 1e-12
+    assert _rel(infidelity_of(tprob, tc, pcof, tgt, 4),
+                jo.infidelity_of(jprob, jc, jnp.asarray(pcof), tgt, 4)
+                ) <= 1e-12
+    assert default_adjoint_method() == ja.default_adjoint_method()
     psi = rng.standard_normal((5, 6, 4)) + 1j * rng.standard_normal((5, 6, 4))
     W = np.array(jprob.guard_subspace_projector)
     assert _rel(qt.guard_penalty(torch.tensor(psi), 0.5, 3.0, W),

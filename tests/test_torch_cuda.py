@@ -6,6 +6,8 @@ it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -483,17 +485,42 @@ def test_prefix_route_on_the_card(cuda):
 
 
 def test_forced_gradient_on_the_card(cuda):
-    """Forward mode through the f32 kernels is refused; in float64 on the
-    card the forced gradient meets the adjoint gate."""
+    """Forward mode on the card: in float64 the forced gradient meets the
+    adjoint gate; in float32, through the kernels' forward-mode rules, the
+    forced gradient (CNOT3, 100 steps of 0.55, 60 parameters) and the AD
+    Hessian (4 steps, 24 parameters) come within 1e-3 of float64, at the
+    sizes of chip_smoke.py's forced phase."""
     prob, ctrls, pcof, tgt = _cnot3_slice(cuda, 4)
-    with pytest.raises(NotImplementedError, match="forward rule"):
-        qt.eval_grad_forced(prob, ctrls, pcof[0], tgt, 4)
     prob64 = qt.cnot3_problem(tf=2.2, nsteps=4, device=cuda)
     g_for = qt.eval_grad_forced(prob64, ctrls, pcof[0], tgt, 4)
     g_adj = qt.discrete_adjoint(prob64, ctrls, pcof[0], tgt, 4)
     scale = max(1.0, float(g_adj.abs().max()))
     assert float((g_for - g_adj).abs().max()) <= 1e-14 * scale + 1e-13 * float(
         g_adj.abs().max())
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    prob, ctrls, pcof, _ = _cnot3_slice(cuda, 100)
+    prob64 = dataclasses.replace(prob, dtype="float64")
+    tgt = qt.cnot3_target(tf=prob.tf)
+    sk.reset_launch_counts()
+    g32 = qt.eval_grad_forced(prob, ctrls, pcof[0], tgt, 4)
+    assert sk.launch_counts()["hermite_lhs_matrix"] > 0
+    assert rel(g32, qt.eval_grad_forced(prob64, ctrls, pcof[0], tgt, 4)
+               ) <= 1e-3
+    prob = qt.cnot3_problem(tf=2.2, nsteps=4, solver="schulz",
+                            dtype="float32", schulz_iters=48,
+                            schulz_warm_budget=0, device=cuda)
+    ctrls = tuple(qt.BSpline2Control(4, prob.tf) for _ in range(3))
+    pcof = np.random.default_rng(1).standard_normal(24) * 0.05
+    tgt = qt.cnot3_target(tf=2.2)
+    sk.reset_launch_counts()
+    H32 = qt.eval_hessian(prob, ctrls, pcof, tgt, 4)
+    assert sk.launch_counts()["hermite_stage_pair"] > 0
+    H64 = qt.eval_hessian(dataclasses.replace(prob, dtype="float64"), ctrls,
+                          pcof, tgt, 4)
+    assert rel(H32, H64) <= 1e-3
 
 
 def test_lbfgs_method_on_the_card(cuda):

@@ -6,6 +6,8 @@ in f64; the pair build against ``qgd_tpu.forward._stage_matrices_both``
 themselves are checked on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 
+from functools import lru_cache
+
 import numpy as np
 import pytest
 
@@ -171,28 +173,87 @@ def test_plain_versions_match_hermite_definition_f64(m):
 
 @pytest.mark.parametrize("fn", ["lhs", "rhs"])
 def test_autograd_functions_gradcheck_f64(fn):
+    """Each Function's backward and forward-mode rule by gradcheck, and
+    its tangent against ``jax.jvp`` of the JAX package's definition."""
     A, W = _inputs(3, 2, 2, 5, 3, dtype=np.float64)
     a = torch.tensor(A, requires_grad=True)
     w = torch.tensor(W, requires_grad=True)
     d = torch.tensor(0.3, dtype=torch.float64, requires_grad=True)
+
+    def check(f, inputs):
+        assert torch.autograd.gradcheck(f, inputs, check_forward_ad=True)
+
     if fn == "lhs":
-        assert torch.autograd.gradcheck(
-            lambda a_, d_: sk.HermiteLHSMatrix.apply(a_, d_, 2, -1.0), (a, d))
-        assert torch.autograd.gradcheck(
-            lambda a_: sk.HermiteLHSMatrix.apply(a_, 0.3, 2, 1.0), (a,))
+        check(lambda a_, d_: sk.HermiteLHSMatrix.apply(a_, d_, 2, -1.0),
+              (a, d))
+        check(lambda a_: sk.HermiteLHSMatrix.apply(a_, 0.3, 2, 1.0), (a,))
         # the pair's Function: both outputs, dt a tensor or a number
-        assert torch.autograd.gradcheck(
-            lambda a_, d_: sk.HermiteStagePair.apply(a_, d_, 2), (a, d))
-        assert torch.autograd.gradcheck(
-            lambda a_: sk.HermiteStagePair.apply(a_, 0.3, 3),
-            (torch.tensor(_inputs(6, 2, 3, 5, 3, dtype=np.float64)[0],
-                          requires_grad=True),))
+        check(lambda a_, d_: sk.HermiteStagePair.apply(a_, d_, 2), (a, d))
+        check(lambda a_: sk.HermiteStagePair.apply(a_, 0.3, 3),
+              (torch.tensor(_inputs(6, 2, 3, 5, 3, dtype=np.float64)[0],
+                            requires_grad=True),))
     else:
-        assert torch.autograd.gradcheck(
-            lambda a_, w_, d_: sk.HermiteRHS.apply(a_, w_, d_, 2),
-            (a, w, d))
-        assert torch.autograd.gradcheck(
-            lambda a_, w_: sk.HermiteRHS.apply(a_, w_, 0.3, 2), (a, w))
+        check(lambda a_, w_, d_: sk.HermiteRHS.apply(a_, w_, d_, 2),
+              (a, w, d))
+        check(lambda a_, w_: sk.HermiteRHS.apply(a_, w_, 0.3, 2), (a, w))
+    _tangents_match_jax_jvp(fn)
+
+
+JVP_DT, JVP_DT_TANGENT = 0.37, -0.8
+
+
+def _jvp_inputs(m):
+    """``(A, W, A tangent, W tangent)``, float64, B = 2, n = 6, b = 3."""
+    return (*_inputs(10 + m, 2, m, 6, 3, dtype=np.float64),
+            *_inputs(20 + m, 2, m, 6, 3, dtype=np.float64))
+
+
+@lru_cache(maxsize=None)
+def _jax_tangents(m):
+    """``jax.jvp`` in float64 of JAX's sides for each stack of
+    :func:`_jvp_inputs`: (L, R) of the identity recursion (sign -1 and
+    +1) and R of the recursion on W, along the tangents of A, W and dt."""
+    A, W, At, Wt = _jvp_inputs(m)
+
+    def sides(A_, W_, dt_):
+        def one(a_, w_):
+            D = scaled_derivatives(a_, jnp.eye(a_.shape[-1]), m)
+            return (build_lhs(D, dt_, m), build_rhs(D, dt_, m),
+                    build_rhs(scaled_derivatives(a_, w_, m), dt_, m))
+        return jax.vmap(one)(A_, W_)
+
+    tangents = jax.jit(lambda p, t: jax.jvp(sides, p, t)[1])(
+        (jnp.asarray(A), jnp.asarray(W), jnp.float64(JVP_DT)),
+        (jnp.asarray(At), jnp.asarray(Wt), jnp.float64(JVP_DT_TANGENT)))
+    return tuple(np.asarray(t) for t in tangents)
+
+
+def _tangents_match_jax_jvp(fn):
+    """The tangents of the Functions (``.apply`` under forward-mode AD,
+    f64) along A, W and a tensor dt against ``jax.jvp`` of
+    ``build_lhs``/``build_rhs`` of ``scaled_derivatives`` in float64, at
+    m = 2 and 3."""
+    import torch.autograd.forward_ad as fwAD
+
+    f64 = torch.float64
+    for m in (2, 3):
+        A, W, At, Wt = _jvp_inputs(m)
+        lhs_ref, rhs_ref, w_ref = _jax_tangents(m)
+        with fwAD.dual_level():
+            a = fwAD.make_dual(torch.tensor(A), torch.tensor(At))
+            w = fwAD.make_dual(torch.tensor(W), torch.tensor(Wt))
+            d = fwAD.make_dual(torch.tensor(JVP_DT, dtype=f64),
+                               torch.tensor(JVP_DT_TANGENT, dtype=f64))
+            if fn == "lhs":
+                pairs = [(sk.HermiteLHSMatrix.apply(a, d, m, -1.0), lhs_ref),
+                         (sk.HermiteLHSMatrix.apply(a, d, m, 1.0), rhs_ref),
+                         *zip(sk.HermiteStagePair.apply(a, d, m),
+                              (rhs_ref, lhs_ref))]
+            else:
+                pairs = [(sk.HermiteRHS.apply(a, w, d, m), w_ref)]
+            for out, ref in pairs:
+                tan = fwAD.unpack_dual(out).tangent.numpy()
+                assert np.abs(tan - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
 def test_cpu_tensors_take_plain_version_and_launch_nothing():
