@@ -3,8 +3,9 @@ sources in this checkout, checks each against its plain PyTorch version on
 the card at every shape the driven paths give it and times it beside its
 bound, its library yardstick and with L2 flushed, then drives the main
 path, the optimizer, the batched multistart and the matrix-free GMRES
-route once each, checks what comes out, and profiles one shorter call of
-the main path.
+route once each, and checks what comes out. The device trace of the main
+path's calls, split by the segmented route's spans, is the benchmark's
+(``qgdbench/run.py --trace 1``).
 
 The main path: the CNOT3 objective + exact discrete-adjoint gradient
 (3 coupled transmons (4,4,4), real-stacked state 2N = 128, 8 gate-basis
@@ -104,7 +105,6 @@ import torch
 
 NSTEPS = 1000
 SCENARIOS = 256
-TRACE_STEPS = 100  # the profiled call
 ORDER = 4
 # f32 kernel vs f32 plain version of one kernel call: same arithmetic in
 # another summation order.
@@ -2078,51 +2078,6 @@ def multistart_phase(dev, smi):
     check(med[-1] < med[0], "multistart: the median objective falls")
 
 
-def trace_phase(pcof, tgt, dev, smi):
-    """torch.profiler over one main-path call at nsteps = TRACE_STEPS (the
-    same step size, S = SCENARIOS) that replays the programs an earlier
-    call captured: the device's busy share of the call and where its
-    device time goes."""
-    import qgd_tpu_torch as qt
-    from torch.profiler import ProfilerActivity, profile
-
-    prob = qt.cnot3_problem(tf=550.0 * TRACE_STEPS / NSTEPS,
-                            nsteps=TRACE_STEPS, solver="schulz",
-                            dtype="float32", schulz_iters=48,
-                            schulz_warm_budget=0, device=dev)
-    controls = tuple(qt.BSpline2Control(10, prob.tf) for _ in range(3))
-    graphs = qt.SegmentGraphs()
-    run = lambda: qt.segmented_objective_and_gradient(prob, controls, pcof,
-                                                      tgt, ORDER,
-                                                      graphs=graphs)
-    run()                     # captures; the profiled call replays
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, ops = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-        elif e.name.startswith("aten::"):
-            ops += 1
-    busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    phase("trace", f"one call replaying the captured programs "
-                   f"({graphs.stats()['replays']} replays so far), nsteps="
-                   f"{TRACE_STEPS} S={SCENARIOS}, torch.profiler on, {smi}: "
-                   f"wall {wall_ms:.1f} ms, device "
-                   f"kernels {busy_ms:.1f} ms (busy {busy_ms / wall_ms:.3f}, "
-                   f"idle {1 - busy_ms / wall_ms:.3f}), {ops} aten events, nested "
-                   f"calls included ({ops / TRACE_STEPS:.0f} per step); top "
-                   f"device time: "
-                   + "; ".join(f"{name[:60]} {t:.2f} ms" for name, t in top))
-
-
 def gmres_phase(pcof, tgt, rows, start, dev, smi):
     """The matrix-free route (``solver="gmres"``, diagonal preconditioner,
     GMRES_ITERS Arnoldi steps): (a) the main path's configuration on the
@@ -2651,7 +2606,7 @@ def _free_port() -> int:
 # ``driven_by``) is one of these or a part of one (ROW_PHASE).
 PHASES = ("kernels", "wide", "main", "order8", "large_dense", "segmented",
           "optimize", "prefix", "lbfgs", "chunked", "forced", "multistart",
-          "gmres", "gmres_large", "sharded", "utils", "trace")
+          "gmres", "gmres_large", "sharded", "utils")
 ROW_PHASE = {"gmres_ad": "gmres", "gmres_optimize": "gmres",
              "chunked_long": "chunked"}
 
@@ -2721,7 +2676,6 @@ def main(argv=None):
         "sharded": lambda: sharded_phase(prob, controls, pcof, tgt, dev,
                                          rows, smi),
         "utils": lambda: utils_phase(prob, pcof, dev, smi),
-        "trace": lambda: trace_phase(pcof, tgt, dev, smi),
     }
     for name in phases:
         t0 = time.perf_counter()

@@ -62,6 +62,9 @@ without calling the kernel wrappers, so each replay adds its capture's
 launches to the wrappers' counters (``ops.stage_kernels.add_launches``)
 and the capture, which launches nothing, adds none: the counters read the
 launches made.
+
+While a profiler records, spans (:mod:`qgd_tpu_torch.tracing`) name a
+call's phases and each program run after the capturing one in its trace.
 """
 
 from __future__ import annotations
@@ -112,6 +115,7 @@ from .ops.linalg import (
     stage_solve_transposed,
 )
 from .problem import working_problem
+from .tracing import span
 
 # Budget of the stored states on the card for the automatic segment rule
 # (GB), read once at import, as in the JAX package.
@@ -569,7 +573,8 @@ class _Programs:
         the program; every later run replays the graph."""
         fn = self._forward if kind == "fwd" else self._backward
         if not self.captures:
-            return fn()
+            with span("qgd.replay." + kind):
+                return fn()
         if kind not in self.graphs:
             with _capturable_linalg(self.work.prob):
                 out = fn()
@@ -578,8 +583,9 @@ class _Programs:
                 self.capture_seconds += time.perf_counter() - t0
             return out
         graph, outputs, launches = self.graphs[kind]
-        graph.replay()
-        sk.add_launches(launches)
+        with span("qgd.replay." + kind):
+            graph.replay()
+            sk.add_launches(launches)
         self.replays[kind] += 1
         return outputs
 
@@ -733,57 +739,66 @@ def segmented_objective_and_gradient(prob, controls, pcof, target,
     programs from and keep them in (captured once per problem, batch and
     span; a call without one captures its own).
     """
-    controls = as_control_tuple(controls)
-    pcof, single = _scenario_pcof(prob, pcof)
-    pcof = pcof.detach()
-    n_seg = _segment_count(prob, n_segments, pcof.shape[0])
-    T, m = prob.nsteps, order // 2
-    dt64, ts = _time_grid(prob)
-    with torch.enable_grad():
-        pcof_leaf = pcof.clone().requires_grad_(True)
-        P, Q = control_tables(controls, pcof_leaf, ts, m)
-    work = _Work(prob, P, Q, m, refine_sweeps, use_kernels, False)
-    wd = work.wd
-    progs = _call_programs(graphs, prob, m, n_seg, pcof.shape[0],
-                           refine_sweeps, use_kernels)
+    with span("qgd.call"):
+        controls = as_control_tuple(controls)
+        pcof, single = _scenario_pcof(prob, pcof)
+        pcof = pcof.detach()
+        n_seg = _segment_count(prob, n_segments, pcof.shape[0])
+        T, m = prob.nsteps, order // 2
+        dt64, ts = _time_grid(prob)
+        with span("qgd.tables"):
+            with torch.enable_grad():
+                pcof_leaf = pcof.clone().requires_grad_(True)
+                P, Q = control_tables(controls, pcof_leaf, ts, m)
+            work = _Work(prob, P, Q, m, refine_sweeps, use_kernels, False)
+        wd = work.wd
+        progs = _call_programs(graphs, prob, m, n_seg, pcof.shape[0],
+                               refine_sweeps, use_kernels)
 
-    # ---------------- forward: final state, guard penalty -----------------
-    if n_seg == T:
-        traj, guard = _l1_forward(work, progs)
-        w_final = traj[:, T]
-    else:
-        w_final, guard, starts = _snapshot_pass(work, progs, n_seg,
-                                                keep=True)
-    w_final64 = w_final.to(torch.float64)
-    j1, dj1 = terminal_cost_and_grad(w_final64, target_on_device(prob, target),
-                                     prob.N_ess_levels, cost_type, ic_group)
-    guard = ic_sum(guard, ic_group)
-    ridge = ridge_penalty(pcof, ridge_penalty_strength)
+        # -------------- forward: final state, guard penalty ---------------
+        with span("qgd.forward"):
+            if n_seg == T:
+                traj, guard = _l1_forward(work, progs)
+                w_final = traj[:, T]
+            else:
+                w_final, guard, starts = _snapshot_pass(work, progs, n_seg,
+                                                        keep=True)
 
-    # ---------------- terminal condition ----------------------------------
-    g_T = dj1 + (dt64 / prob.tf) * (prob.guard_subspace_projector
-                                     @ w_final64)
-    p_f, q_f = control_tables_at(controls, pcof, prob.tf, m)
-    p_f, q_f = p_f.to(wd), q_f.to(wd)
-    lam_T = _terminal_multiplier(work, p_f, q_f, g_T, work.schulz)
+        # -------------- terminal condition --------------------------------
+        with span("qgd.terminal"):
+            w_final64 = w_final.to(torch.float64)
+            j1, dj1 = terminal_cost_and_grad(
+                w_final64, target_on_device(prob, target), prob.N_ess_levels,
+                cost_type, ic_group)
+            guard = ic_sum(guard, ic_group)
+            ridge = ridge_penalty(pcof, ridge_penalty_strength)
+            g_T = dj1 + (dt64 / prob.tf) * (prob.guard_subspace_projector
+                                             @ w_final64)
+            p_f, q_f = control_tables_at(controls, pcof, prob.tf, m)
+            p_f, q_f = p_f.to(wd), q_f.to(wd)
+            lam_T = _terminal_multiplier(work, p_f, q_f, g_T, work.schulz)
 
-    # ---------------- backward, table cotangents, pcof chain rule ---------
-    w_rhs, w_lhs = _cot_weights(m, dt64, wd, prob.device)
-    if n_seg == T:
-        cotP, cotQ = _l1_backward(work, progs, traj, lam_T, w_rhs, w_lhs,
-                                  p_f, q_f)
-    else:
-        cotP, cotQ = _segment_backward(work, progs, n_seg, starts, w_final,
-                                       lam_T, w_rhs, w_lhs, p_f, q_f)
-    (grad,) = torch.autograd.grad(
-        (P, Q), pcof_leaf,
-        (cotP.to(torch.float64), cotQ.to(torch.float64)))
-    grad = ic_sum(grad, ic_group)
-    grad = grad + 2.0 * ridge_penalty_strength * pcof / pcof.shape[-1]
+        # -------------- backward, table cotangents, pcof chain rule -------
+        with span("qgd.backward"):
+            w_rhs, w_lhs = _cot_weights(m, dt64, wd, prob.device)
+            if n_seg == T:
+                cotP, cotQ = _l1_backward(work, progs, traj, lam_T, w_rhs,
+                                          w_lhs, p_f, q_f)
+            else:
+                cotP, cotQ = _segment_backward(work, progs, n_seg, starts,
+                                               w_final, lam_T, w_rhs, w_lhs,
+                                               p_f, q_f)
+        with span("qgd.table_vjp"):
+            (grad,) = torch.autograd.grad(
+                (P, Q), pcof_leaf,
+                (cotP.to(torch.float64), cotQ.to(torch.float64)))
+            grad = ic_sum(grad, ic_group)
+            grad = (grad + 2.0 * ridge_penalty_strength * pcof
+                    / pcof.shape[-1])
 
-    if single:
-        return (j1[0], guard[0], ridge[0]), grad[0]
-    return (j1, guard, ridge), grad
+        if single:
+            return (j1[0], guard[0], ridge[0]), grad[0]
+        return (j1, guard, ridge), grad
 
 
 def segmented_gradient(prob, controls, pcof, target, order: int = 4,
@@ -810,24 +825,29 @@ def segmented_objective_value(prob, controls, pcof, target, order: int = 4,
     ``ic_group`` and ``graphs`` as in
     :func:`segmented_objective_and_gradient`, whose forward programs this
     runs."""
-    controls = as_control_tuple(controls)
-    pcof, single = _scenario_pcof(prob, pcof)
-    pcof = pcof.detach()
-    n_seg = _segment_count(prob, n_segments, pcof.shape[0])
-    m = order // 2
-    _, ts = _time_grid(prob)
-    P, Q = control_tables(controls, pcof, ts, m)
-    work = _Work(prob, P, Q, m, refine_sweeps, use_kernels, False)
-    progs = _call_programs(graphs, prob, m, n_seg, pcof.shape[0],
-                           refine_sweeps, use_kernels)
-    if n_seg == prob.nsteps:
-        traj, guard = _l1_forward(work, progs)
-        w_final = traj[:, -1]
-    else:
-        w_final, guard, _ = _snapshot_pass(work, progs, n_seg, keep=False)
-    j1 = terminal_cost(w_final.to(torch.float64),
-                       target_on_device(prob, target), prob.N_ess_levels,
-                       cost_type, ic_group)
-    val = (j1 + ic_sum(guard, ic_group)
-           + ridge_penalty(pcof, ridge_penalty_strength))
-    return val[0] if single else val
+    with span("qgd.call"):
+        controls = as_control_tuple(controls)
+        pcof, single = _scenario_pcof(prob, pcof)
+        pcof = pcof.detach()
+        n_seg = _segment_count(prob, n_segments, pcof.shape[0])
+        m = order // 2
+        _, ts = _time_grid(prob)
+        with span("qgd.tables"):
+            P, Q = control_tables(controls, pcof, ts, m)
+            work = _Work(prob, P, Q, m, refine_sweeps, use_kernels, False)
+        progs = _call_programs(graphs, prob, m, n_seg, pcof.shape[0],
+                               refine_sweeps, use_kernels)
+        with span("qgd.forward"):
+            if n_seg == prob.nsteps:
+                traj, guard = _l1_forward(work, progs)
+                w_final = traj[:, -1]
+            else:
+                w_final, guard, _ = _snapshot_pass(work, progs, n_seg,
+                                                   keep=False)
+        with span("qgd.terminal"):
+            j1 = terminal_cost(w_final.to(torch.float64),
+                               target_on_device(prob, target),
+                               prob.N_ess_levels, cost_type, ic_group)
+            val = (j1 + ic_sum(guard, ic_group)
+                   + ridge_penalty(pcof, ridge_penalty_strength))
+        return val[0] if single else val
