@@ -17,10 +17,13 @@ throughout):
   endpoints (in f32 one pair-kernel launch at batch S·L; JAX builds the
   pair by XLA from one recursion), run the multiplier sweep
   ``L^T lam_n = R^T lam_{n+1} + f_n`` (``f_n`` the guard forcing, formed
-  in f64) and pass the merged cotangents ``w_rhs lam_{n+1} - w_lhs
-  lam_n`` through the VJP of the scaled-derivative stack with respect to
-  the control-table values. The pcof chain rule is one autograd pass
-  through :func:`~qgd_tpu_torch.controls.control_tables` at the end.
+  in f64) and contract the merged cotangents ``w_rhs lam_{n+1} - w_lhs
+  lam_n`` against the operator basis into the control-table cotangents
+  (:func:`_table_cot`: the VJP of the scaled-derivative stack with
+  respect to the table values, by recursions on the basis products of
+  the states and cotangents; no ``(2N, 2N)`` generator is formed). The
+  pcof chain rule is one autograd pass through
+  :func:`~qgd_tpu_torch.controls.control_tables` at the end.
 
 Peak memory is O(n_segments + L) states plus one segment's ``(S·L, 2N,
 2N)`` stage tensors. At L = 1 the stored segment starts ARE the
@@ -217,16 +220,99 @@ def _no_graph(x):
         return x.clone()
 
 
+def _basis_products(ops, x):
+    """The products of the C operators ``ops (N, C·N)`` (column block c
+    the transpose of operator c) with both halves of ``x (R, B, 2N)``, a
+    state's B columns as rows: ``(R, B, 2C, N)``, row ``h·C + c`` holding
+    ``(op_c x_h)^T``. One product whose rows are every column of the batch."""
+    R, B, n = x.shape
+    return (x.reshape(-1, n // 2) @ ops).reshape(R, B, -1, n // 2)
+
+
+def _level_rows(pt, qt, sign: int):
+    """``(R, 1, m, 2, 4(N_ops+1))``: for each level k the two rows (u, v)
+    that map the basis products of a state to ``A_k`` (``sign`` +1) or
+    ``A_k^T`` (-1) times it, from the tables ``pt``, ``qt`` ``(R, m,
+    N_ops+1)`` with the drift's coefficient last."""
+    z = torch.zeros_like(pt)
+    return torch.stack([torch.cat([z, qt, sign * pt, z], -1),
+                        torch.cat([-sign * pt, z, z, qt], -1)], -2)[:, None]
+
+
 def _table_cot(wprob, m: int, p, q, w, cot):
     """VJP of ``scaled_derivatives(assemble_generator_stack(p, q), w)`` with
-    respect to the control-table values ``(p, q) (..., m, N_ops)``, for the
-    cotangent ``cot (..., m+1, 2N, B)``."""
-    with torch.enable_grad():
-        p = _no_graph(p).requires_grad_(True)
-        q = _no_graph(q).requires_grad_(True)
-        Ws = scaled_derivatives(assemble_generator_stack(wprob, p, q, m), w,
-                                m)
-        return torch.autograd.grad(Ws, (p, q), cot)
+    respect to the control-table values ``(p, q) (..., m, N_ops)`` at the
+    states ``w (..., 2N, B)``, for the cotangent ``cot (..., m+1, 2N, B)``
+    (all in one dtype, the basis's).
+
+    Contracted through the operator basis: no ``(2N, 2N)`` generator is
+    formed. With ``A_k = [[S_k, K_k], [-K_k, S_k]]`` (``S_k = delta_k0
+    S_drift + sum_o q[k,o] asym_o``, ``K_k`` likewise from ``p`` and the
+    symmetric operators), the forward recursion ``W_0 = w``, ``W_{j+1} =
+    sum_{i<=j} A_{j-i} W_i / (j+1)`` (levels below m) applies each ``A_k``
+    through the products of ``W_i`` with the stacked basis, and the reverse
+    one ``Y_m = cot_m``, ``Y_j = cot_j + sum_{l>j} A_{l-1-j}^T Y_l / l``
+    (levels m..1) through the products of ``Y_l / l`` with the transposed
+    basis, ``G_l``. The cotangent of the table entry ``(k, o)`` is ``sum_l
+    <G_l, W_{l-1-k}>`` over that entry's operator: ``<G_u, W_v> - <G_v,
+    W_u>`` of ``sym_o`` for ``p``, ``<G_u, W_u> + <G_v, W_v>`` of
+    ``asym_o`` for ``q``; at l = 1 the same inner products are taken as
+    ``<Y_1, op W_0>`` from ``W_0``'s products, so ``G_1`` is never formed.
+    States are held with their columns as rows, so each basis product is
+    one matrix product over all of them. Plain products, no autograd:
+    forward-mode tangents of every input flow through
+    (``adjoint.eval_hessian``)."""
+    batch = p.shape[:-2]
+    R, (n, B), O = math.prod(batch), w.shape[-2:], p.shape[-1]
+    p, q = p.reshape(R, m, O), q.reshape(R, m, O)
+    w = w.reshape(R, n, B).mT.contiguous()
+    cot = cot.reshape(R, m + 1, n, B)
+    C = 2 * (O + 1)
+    ops = torch.cat([wprob.sym_operators, wprob.system_sym[None],
+                     wprob.asym_operators, wprob.system_asym[None]])
+    basis = ops.permute(2, 0, 1).reshape(n // 2, -1)
+    basis_t = ops.permute(1, 0, 2).reshape(n // 2, -1)
+    delta = torch.eye(m, 1, dtype=p.dtype, device=p.device).expand(R, m, 1)
+    pt, qt = torch.cat([p, delta], -1), torch.cat([q, delta], -1)
+    rows, rows_t = _level_rows(pt, qt, 1), _level_rows(pt, qt, -1)
+
+    # forward: W_{i+1..m-1} gain A_t W_i from W_i's products
+    P0 = _basis_products(basis, w)
+    Ws, acc = [w], [None] * m
+    for i in range(m - 1):
+        P_i = _basis_products(basis, Ws[i]) if i else P0
+        part = (rows[:, :, :m - 1 - i].reshape(R, 1, -1, 2 * C)
+                @ P_i).reshape(R, B, -1, n)
+        for t in range(m - 1 - i):
+            j = i + 1 + t
+            acc[j] = (part[:, :, t] if acc[j] is None
+                      else acc[j] + part[:, :, t])
+        Ws.append(acc[i + 1] / (i + 1))
+    # rows (k, h) of the slice [2(m-l):] hold W_{l-1-k}, k = 0..l-1
+    W_rev = torch.stack(Ws[::-1], dim=2).reshape(R, B, 2 * m, -1)
+
+    # reverse: Y_l / l through the transposed basis, contracted at each l
+    # into dots[r, (h', c), (k, h)] = sum_l <G_l[h', c], W_{l-1-k}[h]>
+    Y = [None] + list(cot[:, 1:].mT.contiguous().unbind(1))
+    dots = None
+    for l in range(m, 1, -1):
+        G_l = _basis_products(basis_t, Y[l] / l)
+        part = (rows_t[:, :, :l - 1].reshape(R, 1, -1, 2 * C)
+                @ G_l).reshape(R, B, -1, n)
+        for t in range(l - 1):
+            Y[l - 1 - t] = Y[l - 1 - t] + part[:, :, t]
+        cont = torch.nn.functional.pad(
+            (G_l @ W_rev[:, :, 2 * (m - l):].mT).sum(1), (0, 2 * (m - l)))
+        dots = cont if dots is None else dots + cont
+    cont = (Y[1].reshape(R, B, 2, -1) @ P0.mT).sum(1)     # [h', (h, c)]
+    cont = torch.nn.functional.pad(
+        cont.reshape(R, 2, 2, C).transpose(-1, -2).reshape(R, 2 * C, 2),
+        (0, 2 * (m - 1)))
+    dots = (cont if dots is None else dots + cont).reshape(R, 2, C, m, 2)
+    cotP = dots[:, 0, :O, :, 1] - dots[:, 1, :O, :, 0]
+    cotQ = (dots[:, 0, O + 1:2 * O + 1, :, 0]
+            + dots[:, 1, O + 1:2 * O + 1, :, 1])
+    return cotP.mT.reshape(batch + (m, O)), cotQ.mT.reshape(batch + (m, O))
 
 
 def _cot_weights(m: int, dt64: float, wd, dev):
